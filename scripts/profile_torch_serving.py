@@ -1,0 +1,126 @@
+#!/usr/bin/env python3
+"""Where the time of the port's int8 VQA forward goes on one GPU.
+
+    python3 scripts/profile_torch_serving.py [--seed 0]
+
+Builds the full-width engine as chip_smoke.py does (random weights from
+--seed, calibrated through cli/serve.serve on a synthetic stream), then
+runs 5 steady forwards at B=256 for each bucket length through
+cli/serve.serving_forward, the forward serve() runs on every batch, and
+traces them with torch.profiler. Prints, per length: the wall time per
+forward (host clock ending in a synchronize, profiler off), the device
+time summed over kernels in the traced run, the device's busy share
+(device time over that wall time), and the device time by kernel name,
+largest first. Writes the same as JSON to --out.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+from collections import defaultdict
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import chip_smoke  # noqa: E402
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--out", default=os.path.join(
+        "runs", "profile_torch_serving.json"))
+    args = p.parse_args(argv)
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from xlxmert_tpu_torch.cli.serve import serving_forward
+    from xlxmert_tpu_torch.core.config import LxmertConfig
+    from xlxmert_tpu_torch.ops import _build, attention, int8_matmul
+    from xlxmert_tpu_torch.serving.feature_cache import FeatureCache
+
+    if not torch.cuda.is_available():
+        chip_smoke.fail("needs a CUDA device")
+    kernels = [attention.KERNEL, int8_matmul.KERNEL]
+    _build.build_all(kernels, verbose=False)
+    smoke_args = chip_smoke.parse_args(["--seed", str(args.seed)])
+    # the calibrated full-width engine, built through the serving entry
+    # point (chip_smoke's phase c, which leaves it on the CPU)
+    cfg = LxmertConfig()
+    _, (qp, hqp) = chip_smoke.run_path(torch, smoke_args, kernels,
+                                       lambda m: print(m, flush=True))
+    qp.to("cuda")
+    hqp.to("cuda")
+    B, V, n_fwd = chip_smoke.BATCH, 64, 5
+    gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
+    table = torch.randn(chip_smoke.IMAGES, V, cfg.visual_feat_dim,
+                        generator=gen, device="cuda", dtype=torch.bfloat16)
+    run = serving_forward(qp, hqp, FeatureCache(table, {}), cfg, "cuda")
+    rng = np.random.RandomState(args.seed + 1)
+
+    out = {"device": torch.cuda.get_device_name(0), "lengths": {}}
+    low = 2
+    for L in chip_smoke.BUCKETS:
+        # host inputs as cli/serve builds them: token ids padded with 0 to
+        # the bucket length (lengths inside the bucket), the mask from the
+        # ids, catalog rows; pinned
+        n_tok = rng.randint(low + 1, L + 1, size=B)
+        low = L
+        ids = rng.randint(5, cfg.vocab_size, size=(B, L))
+        ids[np.arange(L)[None] >= n_tok[:, None]] = 0
+        picks = rng.randint(0, chip_smoke.IMAGES, size=B)
+        host = [torch.from_numpy(a).pin_memory() for a in (
+            ids.astype(np.int64), picks.astype(np.int64),
+            (ids > 0).astype(np.float32))]
+
+        def timed():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n_fwd):
+                run(*host)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / n_fwd
+
+        timed()  # warm-up
+        wall_ms = timed()  # without the profiler's overhead
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            traced_ms = timed()
+        by_name = defaultdict(float)
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[ev.name] += ev.time_range.elapsed_us() / 1e3
+        if not by_name:
+            chip_smoke.fail("the trace holds no device time")
+        device_ms = sum(by_name.values()) / n_fwd
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])
+        row = {"wall_ms_per_forward": wall_ms,
+               "traced_wall_ms_per_forward": traced_ms,
+               "device_ms_per_forward": device_ms,
+               "busy_share": device_ms / wall_ms,
+               "qps": B / (wall_ms / 1e3),
+               "by_kernel_ms_per_forward": {
+                   k: v / n_fwd for k, v in top}}
+        out["lengths"][L] = row
+        print(f"L={L}: wall {wall_ms:.3f} ms/forward ({row['qps']:.1f} q/s), "
+              f"device {device_ms:.3f} ms, busy {row['busy_share']:.3f}",
+              flush=True)
+        for name, ms in top[:12]:
+            print(f"    {ms / n_fwd:9.4f} ms  {name[:90]}",
+                  flush=True)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(out, f, indent=1)
+    print(json.dumps({k: {kk: vv for kk, vv in v.items()
+                          if kk != "by_kernel_ms_per_forward"}
+                      for k, v in out["lengths"].items()}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,112 @@
+"""Card-only checks of the port's CUDA kernels against their plain
+PyTorch versions, at the serving path's shapes and at ragged ones.
+
+Marked `gpu`; each test skips from its fixture when no CUDA device is
+present. This file imports neither JAX nor the JAX package, so it also
+runs on a machine without them:
+
+    python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from xlxmert_tpu_torch.ops import attention, int8_matmul
+from xlxmert_tpu_torch.ops.quant import quantize_weight
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _qkv(rng, B, Lq, Lk, HD, dtype, dev):
+    """q from a fused (B, Lq, 3*HD) projection, k/v from a fused
+    (B, Lk, 2*HD) one: column slices, as the engine passes them."""
+    qkv = torch.from_numpy(rng.randn(B, Lq, 3 * HD).astype(np.float32))
+    kv = torch.from_numpy(rng.randn(B, Lk, 2 * HD).astype(np.float32))
+    qkv, kv = qkv.to(dev, dtype), kv.to(dev, dtype)
+    return qkv[..., :HD], kv[..., :HD], kv[..., HD:]
+
+
+@pytest.mark.parametrize("Lq,Lk", [(20, 20), (64, 64), (20, 64), (64, 20),
+                                   (8, 8), (7, 33)])
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("dtype,fast,tol", [
+    (torch.bfloat16, True, 2e-2),   # bf16 scores/softmax: rounding order
+    (torch.bfloat16, False, 2e-2),  # bf16 out
+    (torch.float32, False, 1e-5),   # fp32 sums in another order
+])
+def test_mha_blhd_kernel_matches_plain(cuda, Lq, Lk, with_bias, dtype,
+                                       fast, tol):
+    rng = np.random.RandomState(Lq * 100 + Lk)
+    B, H, D = 6, 12, 64
+    q, k, v = _qkv(rng, B, Lq, Lk, H * D, dtype, cuda)
+    bias = None
+    if with_bias:
+        m = np.ones((B, Lk), np.float32)
+        m[1, Lk // 2:] = 0
+        bias = ((1.0 - torch.from_numpy(m)) * -1e9)[:, None, None, :].to(
+            cuda, torch.bfloat16)
+    before = attention.KERNEL.launches
+    out = attention.mha_blhd(q, k, v, bias, H, fast=fast)
+    torch.cuda.synchronize()
+    assert attention.KERNEL.launches == before + 1
+    ref = attention.mha_blhd_reference(q, k, v, bias, H, fast=fast)
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= tol, err
+
+
+def test_mha_blhd_kernel_rejects_what_it_cannot_take(cuda):
+    q = torch.zeros(2, 65, 768, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="exceed"):
+        attention.mha_blhd(q, q, q, None, 12)
+    q = torch.zeros(2, 8, 12 * 48, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        attention.mha_blhd(q, q, q, None, 12)
+    q = torch.zeros(2, 8, 768, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16"):
+        attention.mha_blhd(q, q, q, torch.zeros(2, 8, device=cuda), 12)
+
+
+@pytest.mark.parametrize("M,K,N", [
+    (8, 1536, 3129), (256, 768, 1536), (160, 768, 2304), (512, 2048, 768),
+    (2048, 3072, 768), (100, 768, 17), (1, 32, 8)])
+@pytest.mark.parametrize("static", [False, True])
+def test_int8_dense_kernel_matches_plain(cuda, M, K, N, static):
+    """Integer products are exact in both versions and the float
+    epilogue runs the same operations in the same order: bit-equal."""
+    rng = np.random.RandomState(M + K + N)
+    qw = quantize_weight(rng.randn(K, N).astype(np.float32) * 0.05,
+                         rng.randn(N).astype(np.float32) * 0.1).to(cuda)
+    x = torch.from_numpy(rng.randn(M, K).astype(np.float32) * 2).to(
+        cuda, torch.bfloat16)
+    inv_a, col = None, qw.scale
+    if static:
+        from xlxmert_tpu_torch.ops.quant import with_activation_scale
+
+        with_activation_scale(qw, 0.8 * x.float().abs().max().item())
+        inv_a, col = qw.inv_a, qw.out_scale
+    before = int8_matmul.KERNEL.launches
+    out = int8_matmul.int8_dense_fused(x, qw.w_i8, col, qw.bias, inv_a)
+    torch.cuda.synchronize()
+    assert int8_matmul.KERNEL.launches == before + 1
+    ref = int8_matmul.int8_dense_reference(x, qw.w_i8, col, qw.bias, inv_a)
+    assert out.shape == (M, N) and out.dtype == torch.bfloat16
+    assert torch.equal(out, ref), (out.float() - ref.float()).abs().max()
+
+
+def test_int8_dense_kernel_rejects_what_it_cannot_take(cuda):
+    qw = quantize_weight(np.ones((24, 8), np.float32)).to(cuda)
+    x = torch.zeros(4, 24, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        int8_matmul.int8_dense_fused(x, qw.w_i8, qw.scale)
+    qw = quantize_weight(np.ones((32, 8), np.float32)).to(cuda)
+    x = torch.zeros(4, 32, device=cuda, dtype=torch.float32)
+    with pytest.raises(ValueError, match="bfloat16"):
+        int8_matmul.int8_dense_fused(x, qw.w_i8, qw.scale)

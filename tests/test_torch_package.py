@@ -1,0 +1,108 @@
+"""Package rules of the PyTorch port: it imports neither JAX, flax nor
+the JAX package, and its entry points run on the card unless the caller
+asks for the CPU."""
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "xlxmert_tpu")
+
+
+def _port_files():
+    pkg = os.path.join(ROOT, "xlxmert_tpu_torch")
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(pkg):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _imported_roots(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module \
+                and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def test_port_imports_no_jax_flax_or_the_jax_package():
+    files = _port_files()
+    assert len(files) > 15
+    bad = {(os.path.relpath(f, ROOT), m) for f in files
+           for m in _imported_roots(f) if m in FORBIDDEN}
+    assert not bad, sorted(bad)
+
+
+def test_every_port_module_imports():
+    import importlib
+
+    for f in _port_files():
+        rel = os.path.relpath(f, ROOT)
+        if rel == "chip_smoke.py":
+            continue
+        importlib.import_module(rel[:-3].replace(os.sep, ".").replace(
+            ".__init__", ""))
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+
+
+def test_entry_points_need_the_card_unless_asked_for_the_cpu(no_cuda,
+                                                             tmp_path):
+    from xlxmert_tpu_torch.cli.serve import main, serve
+    from xlxmert_tpu_torch.core.config import LxmertConfig
+    from xlxmert_tpu_torch.serving import lxmert_int8 as engine
+    from xlxmert_tpu_torch.serving.feature_cache import FeatureCache
+
+    cfg = LxmertConfig(vocab_size=20, hidden_size=32, num_attention_heads=4,
+                       intermediate_size=64, l_layers=1, x_layers=1,
+                       r_layers=1, visual_feat_dim=16)
+    bert, head = engine.random_params(cfg, 3, seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        engine.prepare_params(bert, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        engine.prepare_answer_head(head)
+
+    class Reader:
+        def get(self, img_id):
+            return np.zeros((2, 2, 16), np.float32)
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FeatureCache.build(Reader(), ["a"])
+    cache = FeatureCache.build(Reader(), ["a"], device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve([{"question_id": 0, "img_id": "a", "sent": "x"}], None, cache,
+              {"bert": bert, "answer_head": head}, cfg, ["y"],
+              str(tmp_path / "a.jsonl"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--load", "x", "--h5", "x", "--vocab", "x", "--label2ans",
+              "x", "--questions", "x", "--output", "x"])
+    qp = engine.prepare_params(bert, cfg, device="cpu")
+    assert qp.embeddings.word.device.type == "cpu"
+
+
+def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
+    from xlxmert_tpu_torch.ops import attention, int8_matmul
+    from xlxmert_tpu_torch.ops.quant import quantize_weight
+
+    q = torch.randn(2, 5, 32)
+    before = attention.KERNEL.launches
+    out = attention.mha_blhd(q, q, q, None, 2, fast=False)
+    torch.testing.assert_close(
+        out, attention.mha_blhd_reference(q, q, q, None, 2, fast=False))
+    qw = quantize_weight(np.ones((32, 8), np.float32))
+    int8_matmul.int8_dense_fused(q.to(torch.bfloat16), qw.w_i8, qw.scale)
+    assert attention.KERNEL.launches == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        attention.mha_blhd(q.to("meta"), q.to("meta"), q.to("meta"), None,
+                           2)

@@ -1,0 +1,111 @@
+"""Torch state_dict -> flax-layout nested parameter dict (the port's copy
+of xlxmert_tpu/core/convert.py::convert_torch_state_dict).
+
+The serving engine reads parameters in the reference's flax layout, so a
+released torch checkpoint is converted to that layout first:
+  - `module.` DDP prefixes are stripped;
+  - list-module indices fold into the parent name (`encoder.layer.3.` ->
+    `layer_3`);
+  - Linear `weight` (out, in) -> `kernel` (in, out); Conv2d `weight`
+    (out, in, kh, kw) -> `kernel` (kh, kw, in, out); 1-D `weight` ->
+    `scale`; embedding tables stay row-major as `embedding`;
+  - weight-tied tensors are dropped; `out_cluster.bias` becomes the flat
+    param `out_cluster_bias`.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Tuple
+
+import numpy as np
+
+_EMBEDDING_PARENTS = frozenset({
+    "word_embeddings", "position_embeddings", "token_type_embeddings",
+    "vis_emb", "emb", "embedding",
+})
+
+_TIED_KEYS = frozenset({
+    "cls.predictions.decoder.weight",
+    "obj_predict_head.out_cluster.weight",
+    "emb_classifier.weight",
+})
+
+
+def strip_ddp_prefix(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
+    """Strip the `module.` DDP prefix; keys without it are kept."""
+    return {(k[len("module."):] if k.startswith("module.") else k): v
+            for k, v in state_dict.items()}
+
+
+def _to_numpy(t) -> np.ndarray:
+    if isinstance(t, np.ndarray):
+        return t
+    return t.detach().cpu().float().numpy()
+
+
+def _fold_indices(key: str) -> Tuple[str, ...]:
+    """`encoder.layer.3.attention.self.query` -> (encoder, layer_3, ...)."""
+    out: list = []
+    for p in key.split("."):
+        if p.isdigit() and out:
+            out[-1] = f"{out[-1]}_{p}"
+        else:
+            out.append(p)
+    return tuple(out)
+
+
+def _insert(tree: Dict, path: Tuple[str, ...], value: np.ndarray) -> None:
+    node = tree
+    for p in path[:-1]:
+        node = node.setdefault(p, {})
+    node[path[-1]] = value
+
+
+def convert_torch_state_dict(state_dict: Mapping[str, Any]
+                             ) -> Dict[str, Any]:
+    """Generic torch state_dict -> flax-style nested param dict."""
+    tree: Dict[str, Any] = {}
+    for key, tensor in strip_ddp_prefix(state_dict).items():
+        if key in _TIED_KEYS:
+            continue
+        if key.endswith("num_batches_tracked"):
+            continue
+        arr = _to_numpy(tensor)
+        path = list(_fold_indices(key))
+        leaf = path[-1]
+        if leaf == "running_mean":
+            path[-1] = "mean"
+        elif leaf == "running_var":
+            path[-1] = "var"
+
+        if key == "obj_predict_head.out_cluster.bias":
+            path = ["obj_predict_head", "out_cluster_bias"]
+        elif key == "emb_classifier.bias":
+            path = ["emb_classifier_bias"]
+        elif leaf in ("weight", "weight_orig"):
+            parent = path[-2] if len(path) >= 2 else ""
+            if arr.ndim == 1:
+                path[-1] = "scale"
+            elif arr.ndim == 2 and parent in _EMBEDDING_PARENTS:
+                path[-1] = "embedding"
+            elif arr.ndim == 2:
+                path[-1] = "kernel"
+                arr = arr.T
+            elif arr.ndim == 4:
+                path[-1] = "kernel"
+                arr = arr.transpose(2, 3, 1, 0)
+            else:
+                path[-1] = "kernel"
+        _insert(tree, tuple(path), arr)
+    return tree
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, Any]:
+    """Read a .pth file on the host and convert it."""
+    import torch
+
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(sd, dict) and "state_dict" in sd and all(
+            not hasattr(v, "shape") for k, v in sd.items()
+            if k != "state_dict"):
+        sd = sd["state_dict"]
+    return convert_torch_state_dict(sd)

@@ -1,0 +1,118 @@
+"""Fused multi-head attention over packed heads, forward only.
+
+Port of `xlxmert_tpu/ops/attention.py::mha_blhd`: q (B, Lq, H*D), k/v
+(B, Lk, H*D), optional additive key bias (B, 1, 1, Lk) or (B, Lk); the
+result is (B, Lq, H*D), the layout the out-projection consumes, so no
+head is ever transposed in device memory. The CUDA kernel is
+`xlxmert_tpu_torch/csrc/mha_blhd.cu` (its header says what bounds it on
+an H100 and what the design does about it); `mha_blhd_reference` is the
+same function in plain PyTorch.
+
+`mha_blhd` takes the plain version only for tensors on the CPU. For CUDA
+tensors it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import numpy as np
+import torch
+
+from xlxmert_tpu_torch.ops._build import Kernel
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+KERNEL = Kernel("mha_blhd", "mha_blhd.cu",
+                [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _LL,
+                 _LL, _LL, ctypes.c_float, _I, _I, _P])
+
+MAX_LEN = 64
+HEAD_DIM = 64
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def softmax_last(s: torch.Tensor) -> torch.Tensor:
+    """jax.nn.softmax over the last axis, in s's dtype: every op rounds
+    to that dtype, and the sum accumulates in fp32 (jnp.sum upcasts
+    bf16), then rounds back."""
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    return e / e.float().sum(-1, keepdim=True).to(e.dtype)
+
+
+def mha_blhd_reference(q, k, v, bias, n_heads: int,
+                       fast: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of the kernel (same rounding points)."""
+    B, Lq, HD = q.shape
+    Lk = k.shape[1]
+    D = HD // n_heads
+    acc = q.dtype if fast else torch.float32
+    qh = q.reshape(B, Lq, n_heads, D).transpose(1, 2).float()
+    kh = k.reshape(B, Lk, n_heads, D).transpose(1, 2).float()
+    vh = v.reshape(B, Lk, n_heads, D).transpose(1, 2)
+    s = (qh @ kh.transpose(-1, -2) * float(np.float32(1.0 / np.sqrt(D))))
+    s = s.to(acc)
+    if bias is not None:
+        s = s + bias.reshape(B, 1, 1, Lk).to(acc)
+    p = softmax_last(s).to(v.dtype)
+    ctx = (p.float() @ vh.float()).to(q.dtype)
+    return ctx.transpose(1, 2).reshape(B, Lq, HD)
+
+
+def _check_operand(t: torch.Tensor, name: str, B: int, HD: int, vec: int):
+    if t.dim() != 3 or t.shape[0] != B or t.shape[2] != HD:
+        raise ValueError(f"mha_blhd: {name} has shape {tuple(t.shape)}, "
+                         f"expected ({B}, L, {HD})")
+    if t.stride(2) != 1 or t.stride(0) % vec or t.stride(1) % vec \
+            or t.data_ptr() % 16:
+        raise ValueError(f"mha_blhd: {name} needs unit column stride, "
+                         f"16-byte alignment and row/batch strides that are "
+                         f"multiples of {vec} elements; got strides "
+                         f"{t.stride()}")
+
+
+def mha_blhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             bias: Optional[torch.Tensor], n_heads: int,
+             fast: bool = True) -> torch.Tensor:
+    """Fused attention over packed heads; see the module docstring.
+    q, k and v may be column slices of one fused projection: only their
+    last dimension must be contiguous. The kernel takes head dim 64,
+    lengths up to 64 and a bf16 bias (the engine's `_extend_mask`)."""
+    if q.device.type == "cpu":
+        return mha_blhd_reference(q, k, v, bias, n_heads, fast)
+    if q.device.type != "cuda":
+        raise ValueError(f"mha_blhd: unsupported device {q.device}")
+    B, Lq, HD = q.shape
+    Lk = k.shape[1]
+    D = HD // n_heads
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"mha_blhd: q/k/v must share one dtype of "
+                         f"{list(_DTYPE_CODE)}; got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    if D * n_heads != HD or D != HEAD_DIM:
+        raise ValueError(f"mha_blhd: head dim {HD}/{n_heads} is not "
+                         f"{HEAD_DIM}")
+    if not (1 <= Lq <= MAX_LEN and 1 <= Lk <= MAX_LEN):
+        raise ValueError(f"mha_blhd: lengths ({Lq}, {Lk}) exceed "
+                         f"{MAX_LEN}")
+    if v.shape[1] != Lk:
+        raise ValueError("mha_blhd: k and v lengths differ")
+    vec = 16 // q.element_size()
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        if t.device != q.device:
+            raise ValueError(f"mha_blhd: {name} is on {t.device}")
+        _check_operand(t, name, B, HD, vec)
+    if bias is not None and (
+            bias.dtype != torch.bfloat16 or bias.device != q.device
+            or bias.numel() != B * Lk or not bias.is_contiguous()):
+        raise ValueError("mha_blhd: bias must be a contiguous bf16 (B, Lk) "
+                         f"or (B, 1, 1, Lk) tensor on {q.device}")
+    out = torch.empty((B, Lq, HD), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    KERNEL.launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(), B,
+        n_heads, Lq, Lk, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), float(np.float32(1.0 / np.sqrt(D))),
+        _DTYPE_CODE[q.dtype], int(bool(fast)), stream)
+    return out
