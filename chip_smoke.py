@@ -4,16 +4,17 @@
     python3 chip_smoke.py [--seed 0] [--out runs/chip_smoke.json]
 
 Phases, each of which fails the script on error:
-  (a) device and build: the card's name, count and power limit; both
+  (a) device and build: the card's name, count and power limit; the four
       CUDA kernels built from csrc/ in parallel (nvcc, -Xptxas -v);
   (b) kernels: each kernel against its plain PyTorch version on the card
-      at every shape the path gives it (serving at B=256 for each bucket
-      length, calibration at batch 8), with its time (CUDA events), the
-      plain version's time, a PyTorch library call's time where one
-      computes the same function, and the least time the card could take
-      (bytes over 3.35 TB/s or operations over the peak rate of their
-      type, whichever is larger); the times summed per forward of each
-      kind and per serving forward drawn from VQA_LENGTH_MIX;
+      at every shape the paths give it (serving at B=256 for each bucket
+      length, calibration and the card-vs-CPU checks at batch 8), with
+      its time (CUDA events), the plain version's time, a PyTorch library
+      call's time where one computes the same function, and the least
+      time the card could take (bytes over 3.35 TB/s or operations over
+      the peak rate of their type, whichever is larger); the times summed
+      per forward of each kind and per serving forward drawn from
+      VQA_LENGTH_MIX;
   (c) the serving path at full width (LxmertConfig(): 9/5/5 layers, 768
       hidden, 2048-d grid features, 3,129 answers) with random weights
       from --seed: a 512-image bf16 catalog in device memory, 2,048
@@ -27,6 +28,14 @@ Phases, each of which fails the script on error:
       (cosine > 0.99 per bucket, the same answer for 90% of the
       queries, and a different one only where the CPU's top answers
       lie within 0.25 sd of the row's logits);
+  (e) the bf16 path at full width (models/, cli/serve --bf16), the same
+      weights and the same 2,048 questions, in three configurations
+      (BF16_CONFIGS): the default (packed-head attention, unfused FFN;
+      34 mha_blhd launches per forward), fused_ffn=True (34 mha_blhd +
+      24 fused_ffn) and attention="pallas", fused_ffn=True (34 fused_mha
+      + 24 fused_ffn). Each configuration's launch counts are checked
+      exactly, and the last two are held to the same model on the CPU
+      (plain versions, the same attention route) as in (c);
   (d) one JSON line listing the kernels (times per serving forward of
       the length mix), then the device line last.
 
@@ -47,10 +56,26 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 MHA_TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 INT8_TOL = 0.0                     # exact integer products, same epilogue
+# fused_ffn: fp32 sums in another order can move a bf16 output across a
+# rounding boundary: one bf16 step at the largest output
+FFN_TOL_REL = 2.0 ** -7
 BUCKETS = (8, 12, 16, 20)
 BATCH = 256
 CALIB_BATCH = 8       # cli/serve calibrates on batches of 8
-PER_FORWARD = {"mha_blhd": 34, "int8_dense": 129}   # launches, any forward
+# launches per forward of each path: the int8 engine (c) and the three
+# bf16 configurations (e); a kernel launches as often in every forward
+# of every path that runs it
+PER_FORWARD = {
+    "int8": {"mha_blhd": 34, "int8_dense": 129},
+    "bf16": {"mha_blhd": 34},
+    "bf16+fused_ffn": {"mha_blhd": 34, "fused_ffn": 24},
+    "bf16+pallas+fused_ffn": {"fused_mha": 34, "fused_ffn": 24},
+}
+# serve(bf16=True, attention=..., fused_ffn=...) of each bf16 path, and
+# the attention route its CPU copy takes (None: no card-vs-CPU check)
+BF16_CONFIGS = {"bf16": ("auto", False, None),
+                "bf16+fused_ffn": ("auto", True, "blhd"),
+                "bf16+pallas+fused_ffn": ("pallas", True, "pallas")}
 ARGMAX_AGREE = 0.9    # share of card answers equal to the CPU's
 NEAR_TIE_SD = 0.25    # largest CPU margin (row sd) of an answer swapped
 IMAGES = 512          # catalog rows in device memory (134 MB bf16)
@@ -102,17 +127,30 @@ def bound(nbytes: float, ops: float, kind: str) -> dict:
 
 
 def forward_kinds():
-    """The forwards of the path: serving at each bucket length ("L=8"..,
-    batch BATCH) and calibration ("calib": batch CALIB_BATCH, dynamic
-    int8 dense, text padded to the longest bucket)."""
+    """The forwards of the int8 path: serving at each bucket length
+    ("L=8"..., batch BATCH) and calibration ("calib": batch CALIB_BATCH,
+    dynamic int8 dense, text padded to the longest bucket)."""
     return [f"L={L}" for L in BUCKETS] + ["calib"]
 
 
-def attention_cases(cfg, B):
-    """(batch, Lq, Lk, with_bias, dtype, fast, uses): `uses` maps each
-    forward kind to this case's launches per forward of that kind."""
+def check_kinds():
+    """The batch-8 forwards of the card-vs-CPU checks, one per bucket
+    length: their launches are not counted, their shapes are checked."""
+    return [f"check L={L}" for L in BUCKETS]
+
+
+# the forward kinds each kernel runs in: every kind of every path
+KINDS = {"mha_blhd": forward_kinds() + check_kinds(),
+         "int8_dense": forward_kinds(),
+         "fused_ffn": forward_kinds()[:-1] + check_kinds(),
+         "fused_mha": forward_kinds()[:-1] + check_kinds()}
+
+
+def attention_shapes(cfg, B):
+    """{(batch, Lq, Lk): (bias on the path, uses)}: `uses` maps each
+    forward kind to this shape's launches per forward of that kind."""
     vis, nl, nr, nx = 64, cfg.l_layers, cfg.r_layers, cfg.x_layers
-    shapes = {}   # (batch, Lq, Lk) -> (bias on the path, uses)
+    shapes = {}
 
     def add(kind, b, text):
         for lq, lk, bias, n in ((text, text, True, nl + nx),
@@ -123,48 +161,96 @@ def attention_cases(cfg, B):
 
     for L in BUCKETS:
         add(f"L={L}", B, L)
+        add(f"check L={L}", CALIB_BATCH, L)
     add("calib", CALIB_BATCH, max(BUCKETS))
-    for (b, lq, lk), (path_bias, uses) in shapes.items():
+    return shapes
+
+
+def attention_cases(cfg, B):
+    """(batch, Lq, Lk, with_bias, dtype, fast, uses) of mha_blhd: every
+    shape with and without bias, in bf16 (fast) and fp32; `uses` is
+    empty but where the case is the path's."""
+    for (b, lq, lk), (path_bias, uses) in attention_shapes(cfg, B).items():
         for bias in (True, False):
             for dtype, fast in (("bfloat16", True), ("float32", False)):
                 on = fast and bias == path_bias
                 yield b, lq, lk, bias, dtype, fast, uses if on else {}
 
 
-def check_attention(torch, F, attention, cfg, rng, log):
+def fused_mha_cases(cfg, B):
+    """The same for fused_mha: every shape with and without bias in bf16
+    (fast), and fp32 at one shape."""
+    for (b, lq, lk), (path_bias, uses) in attention_shapes(cfg, B).items():
+        for bias in (True, False):
+            yield (b, lq, lk, bias, "bfloat16", True,
+                   uses if bias == path_bias else {})
+    yield B, 64, 64, False, "float32", False, {}
+
+
+def ffn_cases(cfg, B):
+    """(M, uses) of fused_ffn: text rows (batch x L; the language and
+    cross layers) and visual rows (batch x 64; the visual and cross
+    layers) of every serving and check forward."""
+    nl, nr, nx = cfg.l_layers, cfg.r_layers, cfg.x_layers
+    shapes = {}
+    for L in BUCKETS:
+        for kind, b in ((f"L={L}", B), (f"check L={L}", CALIB_BATCH)):
+            for M, n in ((b * L, nl + nx), (b * 64, nr + nx)):
+                uses = shapes.setdefault(M, {})
+                uses[kind] = uses.get(kind, 0) + n
+    return sorted(shapes.items())
+
+
+def _qkv_bias(torch, rng, B, lq, lk, HD, dtype, with_bias):
+    """q from a fused (B, Lq, 3*HD) projection, k/v from a fused
+    (B, Lk, 2*HD) one (column slices, as the engine passes them), and a
+    (B, Lk) bf16 key mask bias."""
+    qkv = torch.randn(B, lq, 3 * HD, generator=rng, device="cuda").to(dtype)
+    kv = torch.randn(B, lk, 2 * HD, generator=rng, device="cuda").to(dtype)
+    bias = None
+    if with_bias:
+        keep = torch.rand(B, lk, generator=rng, device="cuda") > 0.3
+        keep[:, 0] = True
+        bias = ((1.0 - keep.float()) * -1e9).to(torch.bfloat16)
+    return qkv[..., :HD], kv[..., :HD], kv[..., HD:], bias
+
+
+def check_attention(torch, F, attention, cfg, rng, log, name="mha_blhd"):
+    """mha_blhd on column slices of fused projections with a (B, 1, 1, Lk)
+    bias, or fused_mha on contiguous (B, H, L, D) operands, as the TPU
+    kernel takes them, with a (B, Lk) bias; SDPA on the same heads."""
     H, HD = cfg.num_attention_heads, cfg.hidden_size
     D = HD // H
+    packed = name == "mha_blhd"
+    cases = (attention_cases if packed else fused_mha_cases)(cfg, BATCH)
     rows = []
-    for B, lq, lk, with_bias, dt, fast, uses in attention_cases(cfg, BATCH):
+    for B, lq, lk, with_bias, dt, fast, uses in cases:
         dtype = getattr(torch, dt)
-        qkv = torch.randn(B, lq, 3 * HD, generator=rng, device="cuda"
-                          ).to(dtype)
-        kv = torch.randn(B, lk, 2 * HD, generator=rng, device="cuda"
-                         ).to(dtype)
-        q, k, v = qkv[..., :HD], kv[..., :HD], kv[..., HD:]
-        bias = None
-        if with_bias:
-            keep = torch.rand(B, lk, generator=rng, device="cuda") > 0.3
-            keep[:, 0] = True
-            bias = ((1.0 - keep.float()) * -1e9)[:, None, None, :].to(
-                torch.bfloat16)
-        out = attention.mha_blhd(q, k, v, bias, H, fast=fast)
-        ref = attention.mha_blhd_reference(q, k, v, bias, H, fast=fast)
+        q, k, v, bias = _qkv_bias(torch, rng, B, lq, lk, HD, dtype,
+                                  with_bias)
+        heads = [t.view(B, -1, H, D).transpose(1, 2) for t in (q, k, v)]
+        if packed:
+            args = (q, k, v, None if bias is None else bias[:, None, None],
+                    H, fast)
+            kernel_fn, plain_fn = (attention.mha_blhd,
+                                   attention.mha_blhd_reference)
+        else:
+            heads = [t.contiguous() for t in heads]
+            args = (*heads, bias, fast)
+            kernel_fn, plain_fn = (attention.fused_mha,
+                                   attention.fused_mha_reference)
+        out, ref = kernel_fn(*args), plain_fn(*args)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         if not (err <= MHA_TOL[dt]) or not torch.isfinite(out).all():
-            fail(f"mha_blhd {lq}x{lk} bias={with_bias} {dt}: max abs err "
+            fail(f"{name} {lq}x{lk} bias={with_bias} {dt}: max abs err "
                  f"{err} > {MHA_TOL[dt]}")
-        qh, kh, vh = (t.view(B, -1, H, D).transpose(1, 2) for t in (q, k, v))
-        mask = None if bias is None else bias.to(dtype)
-        kernel = time_ms(torch, lambda: attention.mha_blhd(
-            q, k, v, bias, H, fast=fast))
-        plain = time_ms(torch, lambda: attention.mha_blhd_reference(
-            q, k, v, bias, H, fast=fast))
+        mask = None if bias is None else bias[:, None, None].to(dtype)
+        kernel = time_ms(torch, lambda: kernel_fn(*args))
+        plain = time_ms(torch, lambda: plain_fn(*args))
         library = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=mask))
-        esize = q.element_size()
-        nbytes = (B * (2 * lq + 2 * lk) * HD * esize
+            *heads, attn_mask=mask))
+        nbytes = (B * (2 * lq + 2 * lk) * HD * q.element_size()
                   + (0 if bias is None else bias.numel() * 2))
         row = {"Lq": lq, "Lk": lk, "bias": with_bias, "dtype": dt,
                "fast": fast, "B": B, "max_abs_err": err, "tol": MHA_TOL[dt],
@@ -172,9 +258,55 @@ def check_attention(torch, F, attention, cfg, rng, log):
                "uses": uses,
                **bound(nbytes, 4.0 * B * H * lq * lk * D, dt)}
         rows.append(row)
-        log(f"  mha_blhd B={B:3d} {lq:2d}x{lk:2d} bias={with_bias!s:5} "
+        log(f"  {name} B={B:3d} {lq:2d}x{lk:2d} bias={with_bias!s:5} "
             f"{dt:8} err {err:.2e} (tol {MHA_TOL[dt]:g})  kernel "
             f"{kernel:.4f} ms  plain {plain:.4f}  sdpa {library:.4f}  "
+            f"bound {row['bound_ms']:.4f} ({row['bound_by']})")
+    return rows
+
+
+def check_ffn(torch, F, ffn, cfg, rng, log):
+    """fused_ffn (tanh gelu, as serving runs it) with bf16 rows and
+    weights at the model's widths; the library call is the same math as
+    bf16 PyTorch ops: linear, gelu, linear, residual add, layer_norm."""
+    Hd, I = cfg.hidden_size, cfg.intermediate_size
+    eps = cfg.layer_norm_eps
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=rng, device="cuda") * scale
+
+    w1 = randn(I, Hd, scale=0.02).to(torch.bfloat16)
+    w2 = randn(Hd, I, scale=0.02).to(torch.bfloat16)
+    b1, b2, be = randn(I, scale=0.02), randn(Hd, scale=0.02), \
+        randn(Hd, scale=0.02)
+    g = 1.0 + randn(Hd, scale=0.1)
+    lib = [t.to(torch.bfloat16) for t in (b1, b2, g, be)]
+    rows = []
+    for M, uses in ffn_cases(cfg, BATCH):
+        x = randn(M, Hd).to(torch.bfloat16)
+        args = (x, w1, b1, w2, b2, g, be)
+        out = ffn.fused_ffn(*args, approx_gelu=True, eps=eps)
+        ref = ffn.fused_ffn_reference(*args, approx_gelu=True, eps=eps)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        tol = FFN_TOL_REL * ref.float().abs().max().item()
+        if not (err <= tol) or not torch.isfinite(out).all():
+            fail(f"fused_ffn M={M}: max abs err {err} > {tol}")
+        kernel = time_ms(torch, lambda: ffn.fused_ffn(
+            *args, approx_gelu=True, eps=eps))
+        plain = time_ms(torch, lambda: ffn.fused_ffn_reference(
+            *args, approx_gelu=True, eps=eps))
+        library = time_ms(torch, lambda: F.layer_norm(
+            F.linear(F.gelu(F.linear(x, w1, lib[0]), approximate="tanh"),
+                     w2, lib[1]) + x, (Hd,), lib[2], lib[3], eps))
+        nbytes = 2 * M * Hd * 2 + 2 * Hd * I * 2 + (I + 3 * Hd) * 4
+        row = {"M": M, "H": Hd, "I": I, "max_abs_err": err, "tol": tol,
+               "ms": kernel, "plain_ms": plain, "library_ms": library,
+               "uses": uses,
+               **bound(nbytes, 4.0 * M * Hd * I, "bfloat16")}
+        rows.append(row)
+        log(f"  fused_ffn M={M:5d} err {err:.2e} (tol {tol:.2e})  kernel "
+            f"{kernel:.4f} ms  plain {plain:.4f}  library {library:.4f}  "
             f"bound {row['bound_ms']:.4f} ({row['bound_by']})")
     return rows
 
@@ -256,13 +388,13 @@ def check_int8(torch, int8_matmul, quant, cfg, B, n_answers, rng, log):
     return rows
 
 
-def per_forward(rows, mix):
-    """Each kernel's times summed over the launches of one forward of
-    each kind, and over a serving forward drawn from `mix` (the share of
+def per_forward(rows, mix, kinds):
+    """A kernel's times summed over its launches in one forward of each
+    kind, and over a serving forward drawn from `mix` (the share of
     questions, hence of full batches, at each bucket length)."""
     keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms")
     out = {}
-    for kind in forward_kinds():
+    for kind in kinds:
         used = [(r, r["uses"][kind]) for r in rows if kind in r["uses"]]
         out[kind] = {k: (None if any(r[k] is None for r, _ in used)
                          else sum(r[k] * n for r, n in used)) for k in keys}
@@ -273,6 +405,19 @@ def per_forward(rows, mix):
         t["bound_by"] = ("bytes" if t["bytes_ms"] >= t["ops_ms"]
                          else "operations")
     return out
+
+
+def launches_per_kind(name, rows):
+    """{kind: launches the kernel phase covers}; fails unless they are
+    the kernel's launches per forward in every kind it runs in."""
+    want = next(p[name] for p in PER_FORWARD.values() if name in p)
+    got = {kind: sum(r["uses"].get(kind, 0) for r in rows)
+           for kind in KINDS[name]}
+    for kind, n in got.items():
+        if n != want:
+            fail(f"{name}: the kernel phase covers {n} launches of a "
+                 f"{kind} forward, the path makes {want}")
+    return got
 
 
 # ---------------------------------------------------------------------------
@@ -304,123 +449,126 @@ def cosine(a, b) -> float:
     return float(a @ b / (a.norm() * b.norm() + 1e-12))
 
 
-def run_path(torch, args, kernels, log, cfg=None, device="cuda"):
-    """Phase (c) at `cfg` (default: the full-width LxmertConfig()).
-    Returns its numbers and the calibrated engine (qp, head_qp), left on
-    the CPU. With device="cpu" and a narrow cfg it runs on the CPU, as
-    its test does."""
+class Setup:
+    """What every path phase serves: random weights in the flax layout
+    from --seed (LxmertConfig() unless `cfg`, 3,129 answers), an
+    IMAGES-image bf16 catalog on `device`, a synthetic vocabulary and
+    QUESTIONS questions whose lengths follow VQA_LENGTH_MIX."""
+
+    n_answers = 3129
+    V = 64
+
+    def __init__(self, torch, args, log, cfg=None, device="cuda"):
+        from xlxmert_tpu_torch.core.config import LxmertConfig
+        from xlxmert_tpu_torch.data.tokenization import Tokenizer
+        from xlxmert_tpu_torch.serving import lxmert_int8 as engine
+        from xlxmert_tpu_torch.serving.feature_cache import FeatureCache
+
+        self.cfg = cfg = cfg or LxmertConfig()
+        self.device = device
+        t0 = time.time()
+        self.bert, self.head = engine.random_params(cfg, self.n_answers,
+                                                    seed=args.seed)
+        log(f"  random full-width weights (seed {args.seed}): "
+            f"{time.time() - t0:.1f}s")
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        self.table = torch.randn(IMAGES, self.V, cfg.visual_feat_dim,
+                                 generator=gen, device=device,
+                                 dtype=torch.bfloat16)
+        self.cache = FeatureCache(self.table,
+                                  {f"img_{i}": i for i in range(IMAGES)})
+        log(f"  catalog: {IMAGES} images x {self.V} x {cfg.visual_feat_dim}"
+            f" bf16 on the card, {self.cache.nbytes / 1e6:.1f} MB")
+        words = [f"w{i}" for i in range(4000)]
+        with tempfile.TemporaryDirectory() as tmp:
+            vocab = os.path.join(tmp, "vocab.txt")
+            with open(vocab, "w") as f:
+                f.write("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]",
+                                   "[MASK]"] + words) + "\n")
+            self.tokenizer = Tokenizer(vocab)
+        self.questions = synthetic_questions(QUESTIONS, IMAGES, words,
+                                             engine.VQA_LENGTH_MIX,
+                                             args.seed)
+        self.label2ans = [f"answer_{i}" for i in range(self.n_answers)]
+
+    def serve(self, torch, kernels, **kw):
+        """cli/serve.serve over the questions, every kernel's count set to
+        0 just before and read just after. Returns (serve's result, the
+        launches, peak device bytes, wall seconds)."""
+        from xlxmert_tpu_torch.cli.serve import serve
+
+        with tempfile.TemporaryDirectory() as tmp:
+            output = os.path.join(tmp, "answers.jsonl")
+            for k in kernels:
+                k.launches = 0
+            if self.device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            res = serve(self.questions, self.tokenizer, self.cache,
+                        {"bert": self.bert, "answer_head": self.head},
+                        self.cfg, self.label2ans, output, batch=BATCH,
+                        max_text_length=max(BUCKETS),
+                        buckets=",".join(map(str, BUCKETS)),
+                        device=self.device, **kw)
+            wall = time.time() - t0
+            launches = {k.name: k.launches for k in kernels}
+            peak = (torch.cuda.max_memory_allocated()
+                    if self.device == "cuda" else 0)
+            with open(output) as f:
+                answers = [json.loads(line) for line in f if line.strip()]
+        if sorted(a["question_id"] for a in answers) != list(range(len(
+                self.questions))) or not all(a["answer"] in self.label2ans
+                                             for a in answers):
+            fail("the answers file does not answer every question once")
+        return res, launches, peak, wall
+
+    def check_batches(self, torch):
+        """One batch of CALIB_BATCH queries per bucket, at its bucket
+        length: (L, ids, mask, feats, pos) on the CPU."""
+        import numpy as np
+
+        from xlxmert_tpu_torch.serving.feature_cache import FeatureCache
+        from xlxmert_tpu_torch.utils.boxes import box_position
+
+        full = self.tokenizer.encode_batch(
+            [q["sent"] for q in self.questions], max(BUCKETS))
+        n_tok = (full > 0).sum(axis=1)
+        pos = torch.from_numpy(box_position(8)).to(torch.bfloat16)[None]
+        batches, low = [], 0
+        for L in BUCKETS:
+            rows = np.flatnonzero((n_tok > low) & (n_tok <= L))[:CALIB_BATCH]
+            low = L
+            ids = torch.from_numpy(full[rows, :L].astype(np.int64))
+            picks = torch.from_numpy(self.cache.indices(
+                [self.questions[i]["img_id"] for i in rows]))
+            feats = FeatureCache.lookup(self.table,
+                                        picks.to(self.device)).cpu()
+            batches.append((L, ids, (ids > 0).float(), feats,
+                            pos.expand(len(ids), self.V, 4)))
+        return batches
+
+
+def check_launches(path: str, launches, forwards: int) -> None:
+    """Every kernel of `path` launched PER_FORWARD times per forward, and
+    every other kernel not at all."""
+    for name, n in launches.items():
+        per = PER_FORWARD[path].get(name, 0)
+        if n != per * forwards or (per and n <= 0):
+            fail(f"{path}: {name} launched {n} times in {forwards} "
+                 f"forwards, expected {per} per forward")
+
+
+def card_vs_cpu(torch, batches, card, host, n_answers, log):
+    """Holds the card's logits to the CPU's, one batch per bucket: random
+    weights leave near-ties among 3,129 answers that the glue's rounding
+    (plain PyTorch on either side) can swap, so the answers must agree on
+    ARGMAX_AGREE of the queries, the bar the CPU tests set between the
+    port and the JAX package, and each swap must be a near-tie on the CPU
+    (the top two of 3,129 normal draws lie ~0.25 sd apart)."""
     import numpy as np
 
-    from xlxmert_tpu_torch.cli.serve import serve
-    from xlxmert_tpu_torch.core.config import LxmertConfig
-    from xlxmert_tpu_torch.data.tokenization import Tokenizer
-    from xlxmert_tpu_torch.serving import lxmert_int8 as engine
-    from xlxmert_tpu_torch.serving.feature_cache import FeatureCache
-    from xlxmert_tpu_torch.utils.boxes import box_position
-
-    cfg = cfg or LxmertConfig()
-    n_answers = 3129
-    t0 = time.time()
-    bert, head = engine.random_params(cfg, n_answers, seed=args.seed)
-    log(f"  random full-width weights (seed {args.seed}): "
-        f"{time.time() - t0:.1f}s")
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    V = 64
-    table = torch.randn(IMAGES, V, cfg.visual_feat_dim, generator=gen,
-                        device=device, dtype=torch.bfloat16)
-    cache = FeatureCache(table, {f"img_{i}": i for i in range(IMAGES)})
-    log(f"  catalog: {IMAGES} images x {V} x {cfg.visual_feat_dim} "
-        f"bf16 on the card, {cache.nbytes / 1e6:.1f} MB")
-    words = [f"w{i}" for i in range(4000)]
-    with tempfile.TemporaryDirectory() as tmp:
-        vocab = os.path.join(tmp, "vocab.txt")
-        with open(vocab, "w") as f:
-            f.write("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
-                              + words) + "\n")
-        tokenizer = Tokenizer(vocab)
-        questions = synthetic_questions(QUESTIONS, IMAGES, words,
-                                        engine.VQA_LENGTH_MIX, args.seed)
-        label2ans = [f"answer_{i}" for i in range(n_answers)]
-        output = os.path.join(tmp, "answers.jsonl")
-
-        for k in kernels:
-            k.launches = 0
-        if device == "cuda":
-            torch.cuda.reset_peak_memory_stats()
-        t0 = time.time()
-        res = serve(questions, tokenizer, cache,
-                    {"bert": bert, "answer_head": head}, cfg, label2ans,
-                    output, batch=BATCH, max_text_length=max(BUCKETS),
-                    buckets=",".join(map(str, BUCKETS)),
-                    calib_samples=CALIB_SAMPLES, device=device)
-        wall = time.time() - t0
-        launches = {k.name: k.launches for k in kernels}
-        peak = (torch.cuda.max_memory_allocated() if device == "cuda"
-                else 0)
-        with open(output) as f:
-            answers = [json.loads(line) for line in f if line.strip()]
-    for name, n in launches.items():
-        if n <= 0 or n != PER_FORWARD[name] * res["forwards"]:
-            fail(f"{name}: {n} launches in {res['forwards']} forwards, "
-                 f"expected {PER_FORWARD[name]} per forward")
-    if sorted(a["question_id"] for a in answers) != list(range(len(
-            questions))) or not all(a["answer"] in label2ans
-                                    for a in answers):
-        fail("the answers file does not answer every question once")
-    log(f"  served {res['answers']} answers in {res['forwards']} forwards "
-        f"({res['calib_forwards']} calibration + {res['serve_forwards']} "
-        f"serving), wall {wall:.1f}s incl. weight quantization")
-    log(f"  steady-state {res['steady_qps']:.1f} q/s, total "
-        f"{res['total_qps']:.1f} q/s, peak device memory "
-        f"{peak / 2**30:.2f} GiB")
-    log("  launches: " + ", ".join(f"{k} {n} ({n // res['forwards']} per "
-                                   f"forward)" for k, n in launches.items()))
-
-    # the same engine on the CPU (plain versions) against the card: one
-    # batch of 8 per bucket, at the length the engine serves it
-    qp, hqp = res["engine"]
-    full = tokenizer.encode_batch([q["sent"] for q in questions],
-                                  max(BUCKETS))
-    n_tok = (full > 0).sum(axis=1)
-    pos = torch.from_numpy(box_position(8)).to(torch.bfloat16)[None]
-    batches = []
-    low = 0
-    for L in BUCKETS:
-        rows = np.flatnonzero((n_tok > low) & (n_tok <= L))[:CALIB_BATCH]
-        low = L
-        ids = torch.from_numpy(full[rows, :L].astype(np.int64))
-        picks = torch.from_numpy(cache.indices(
-            [questions[i]["img_id"] for i in rows]))
-        feats = FeatureCache.lookup(table, picks.to(device)).cpu()
-        batches.append((L, ids, (ids > 0).float(), feats))
-
-    def logits(device):
-        out = []
-        with torch.inference_mode():
-            for _, ids, mask, feats in batches:
-                _, _, pooled = engine.lxmert_forward(
-                    qp, ids.to(device), feats.to(device),
-                    pos.expand(len(ids), V, 4).to(device),
-                    attention_mask=mask.to(device),
-                    n_heads=cfg.num_attention_heads)
-                out.append(engine.answer_head_forward(hqp, pooled).cpu())
-        return out
-
-    card = logits(device)
-    qp.to("cpu")
-    hqp.to("cpu")
-    t0 = time.time()
-    host = logits("cpu")
-    log(f"  card vs CPU, {CALIB_BATCH} queries per bucket (CPU forwards "
-        f"{time.time() - t0:.1f}s):")
-    # random weights leave near-ties among 3,129 answers that the glue's
-    # rounding (plain PyTorch on either side) can swap: the answers must
-    # agree on ARGMAX_AGREE of the queries, the bar the CPU tests set
-    # between the port and the JAX package, and each swap must be a
-    # near-tie on the CPU (the top two of 3,129 normal draws lie ~0.25 sd
-    # apart)
     checks, n_same, n_all = {}, 0, 0
-    for (L, ids, _, _), c, h in zip(batches, card, host):
+    for (L, ids, *_), c, h in zip(batches, card, host):
         cos = cosine(c, h)
         same = c.argmax(-1) == h.argmax(-1)
         n_same, n_all = n_same + int(same.sum()), n_all + len(same)
@@ -447,10 +595,114 @@ def run_path(torch, args, kernels, log, cfg=None, device="cuda"):
     if n_same < ARGMAX_AGREE * n_all:
         fail(f"card and CPU answers agree on {n_same}/{n_all} queries, "
              f"fewer than {ARGMAX_AGREE:.0%}")
+    return checks
+
+
+def run_path(torch, args, kernels, log, cfg=None, device="cuda",
+             setup=None):
+    """Phase (c) at `cfg` (default: the full-width LxmertConfig()).
+    Returns its numbers and the calibrated engine (qp, head_qp), left on
+    the CPU. With device="cpu" and a narrow cfg it runs on the CPU, as
+    its test does."""
+    from xlxmert_tpu_torch.serving import lxmert_int8 as engine
+
+    setup = setup or Setup(torch, args, log, cfg, device)
+    cfg = setup.cfg
+    res, launches, peak, wall = setup.serve(
+        torch, kernels, calib_samples=CALIB_SAMPLES)
+    check_launches("int8", launches, res["forwards"])
+    log(f"  served {res['answers']} answers in {res['forwards']} forwards "
+        f"({res['calib_forwards']} calibration + {res['serve_forwards']} "
+        f"serving), wall {wall:.1f}s incl. weight quantization")
+    log(f"  steady-state {res['steady_qps']:.1f} q/s, total "
+        f"{res['total_qps']:.1f} q/s, peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    log("  launches: " + ", ".join(f"{k} {n} ({n // res['forwards']} per "
+                                   f"forward)" for k, n in launches.items()))
+
+    # the same engine on the CPU (plain versions) against the card: one
+    # batch of 8 per bucket, at the length the engine serves it
+    qp, hqp = res["engine"]
+    batches = setup.check_batches(torch)
+
+    def logits(device):
+        out = []
+        with torch.inference_mode():
+            for _, ids, mask, feats, pos in batches:
+                _, _, pooled = engine.lxmert_forward(
+                    qp, ids.to(device), feats.to(device), pos.to(device),
+                    attention_mask=mask.to(device),
+                    n_heads=cfg.num_attention_heads)
+                out.append(engine.answer_head_forward(hqp, pooled).cpu())
+        return out
+
+    card = logits(device)
+    qp.to("cpu")
+    hqp.to("cpu")
+    t0 = time.time()
+    host = logits("cpu")
+    log(f"  card vs CPU, {CALIB_BATCH} queries per bucket (CPU forwards "
+        f"{time.time() - t0:.1f}s):")
+    checks = card_vs_cpu(torch, batches, card, host, setup.n_answers, log)
     return {"launches": launches, "forwards": res["forwards"],
             "answers": res["answers"], "steady_qps": res["steady_qps"],
             "total_qps": res["total_qps"], "peak_bytes": peak,
             "card_vs_cpu": checks}, (qp, hqp)
+
+
+def run_bf16_paths(torch, args, kernels, log, cfg=None, device="cuda",
+                   setup=None):
+    """Phase (e): cli/serve.serve(bf16=True) in each of BF16_CONFIGS,
+    with launch counts checked exactly; the configurations whose CPU
+    route is given are held to the same model on the CPU. Returns
+    {configuration: numbers}."""
+    from xlxmert_tpu_torch.models.lxmert import ServingOptions
+    from xlxmert_tpu_torch.models.task_heads import VQAModel
+
+    setup = setup or Setup(torch, args, log, cfg, device)
+    out = {}
+    for path, (attention, fused_ffn, cpu_route) in BF16_CONFIGS.items():
+        res, launches, peak, wall = setup.serve(
+            torch, kernels, bf16=True, attention=attention,
+            fused_ffn=fused_ffn)
+        check_launches(path, launches, res["forwards"])
+        log(f"  {path} (attention={attention}, fused_ffn={fused_ffn}): "
+            f"{res['answers']} answers in {res['forwards']} forwards, "
+            f"steady-state {res['steady_qps']:.1f} q/s, total "
+            f"{res['total_qps']:.1f} q/s, wall {wall:.1f}s, peak device "
+            f"memory {peak / 2**30:.2f} GiB; launches "
+            + ", ".join(f"{k} {n}" for k, n in launches.items() if n))
+        out[path] = {"attention": attention, "fused_ffn": fused_ffn,
+                     "launches": launches, "forwards": res["forwards"],
+                     "answers": res["answers"],
+                     "steady_qps": res["steady_qps"],
+                     "total_qps": res["total_qps"], "peak_bytes": peak}
+        model = res["engine"]
+        if cpu_route is None:
+            continue
+        # the same weights on the CPU, the same route through the
+        # kernels' plain versions
+        host_model = VQAModel(setup.cfg, setup.n_answers, torch.bfloat16,
+                              ServingOptions(True, cpu_route, fused_ffn))
+        host_model.load_state_dict(model.state_dict())
+        host_model = host_model.to(torch.bfloat16).eval()
+        batches = setup.check_batches(torch)
+
+        def logits(m, device):
+            with torch.inference_mode():
+                return [m(ids.to(device), feats.to(device), pos.to(device),
+                          attention_mask=mask.to(device)).cpu()
+                        for _, ids, mask, feats, pos in batches]
+
+        card = logits(model, device)
+        t0 = time.time()
+        host = logits(host_model, "cpu")
+        log(f"  {path}: card vs CPU, {CALIB_BATCH} queries per bucket (CPU "
+            f"forwards {time.time() - t0:.1f}s):")
+        out[path]["card_vs_cpu"] = card_vs_cpu(torch, batches, card, host,
+                                               setup.n_answers, log)
+        del host_model
+    return out
 
 
 def main(argv=None) -> int:
@@ -460,7 +712,7 @@ def main(argv=None) -> int:
         import torch.nn.functional as F
 
         from xlxmert_tpu_torch.core.config import LxmertConfig
-        from xlxmert_tpu_torch.ops import _build, attention, int8_matmul
+        from xlxmert_tpu_torch.ops import _build, attention, ffn, int8_matmul
         from xlxmert_tpu_torch.ops import quant
         from xlxmert_tpu_torch.serving import lxmert_int8 as engine
     except ImportError as e:
@@ -482,7 +734,8 @@ def main(argv=None) -> int:
     card = smi.stdout.strip().splitlines()[0]
     log(f"(a) device: {device_name} x{count}; torch {torch.__version__} "
         f"CUDA {torch.version.cuda}")
-    kernels = [attention.KERNEL, int8_matmul.KERNEL]
+    kernels = [attention.KERNEL, int8_matmul.KERNEL, ffn.KERNEL,
+               attention.FUSED_MHA_KERNEL]
     build_s = _build.build_all(kernels, verbose=True)
     log(f"    kernels built in {build_s:.1f}s (parallel nvcc)")
     for k in kernels:
@@ -494,45 +747,54 @@ def main(argv=None) -> int:
     cfg = LxmertConfig()
     mix = engine.VQA_LENGTH_MIX
     rng = torch.Generator(device="cuda").manual_seed(args.seed)
-    log(f"(b) kernels vs plain versions at every shape of the path: "
-        f"B={BATCH} at text {BUCKETS}, B={CALIB_BATCH} at calibration "
-        f"({card})")
+    log(f"(b) kernels vs plain versions at every shape of the paths: "
+        f"B={BATCH} at text {BUCKETS}, B={CALIB_BATCH} at calibration and "
+        f"the card-vs-CPU checks ({card})")
     rows = {"mha_blhd": check_attention(torch, F, attention, cfg, rng, log),
             "int8_dense": check_int8(torch, int8_matmul, quant, cfg, BATCH,
-                                     3129, rng, log)}
+                                     3129, rng, log),
+            "fused_ffn": check_ffn(torch, F, ffn, cfg, rng, log),
+            "fused_mha": check_attention(torch, F, attention, cfg, rng,
+                                         log, name="fused_mha")}
     times = {}
     for name, kernel_rows in rows.items():
-        times[name] = per_forward(kernel_rows, mix)
-        for kind in forward_kinds():
-            n = sum(r["uses"].get(kind, 0) for r in kernel_rows)
-            if n != PER_FORWARD[name]:
-                fail(f"{name}: the kernel phase covers {n} launches of a "
-                     f"{kind} forward, the path makes {PER_FORWARD[name]}")
+        launches_per_kind(name, kernel_rows)
+        times[name] = per_forward(kernel_rows, mix, KINDS[name])
         log(f"  {name} per forward (ms):")
         for kind, t in times[name].items():
             lib = "none" if t["library_ms"] is None else \
                 f"{t['library_ms']:.4f}"
-            log(f"    {kind:6} kernel {t['ms']:.4f}  plain "
+            log(f"    {kind:11} kernel {t['ms']:.4f}  plain "
                 f"{t['plain_ms']:.4f}  library {lib}  bound "
                 f"{t['bound_ms']:.4f} ({t['bound_by']})")
 
-    # (c) the serving path
-    log("(c) serving path: full width, bucketed 8,12,16,20, B="
+    # (c) the int8 serving path, (e) the bf16 paths: one setup
+    log("(c) int8 serving path: full width, bucketed 8,12,16,20, B="
         f"{BATCH}, random weights")
-    path, _ = run_path(torch, args, kernels, log)
+    setup = Setup(torch, args, log, cfg)
+    path, _ = run_path(torch, args, kernels, log, setup=setup)
+    log("(e) bf16 serving paths: the same weights and questions")
+    bf16_paths = run_bf16_paths(torch, args, kernels, log, setup=setup)
+    paths = {"int8": path, **bf16_paths}
 
     # (d) the kernels line and the device line: times per serving forward
-    # drawn from VQA_LENGTH_MIX
+    # drawn from VQA_LENGTH_MIX; launches summed over the paths' runs
     sources = {"mha_blhd": ("xlxmert_tpu_torch/csrc/mha_blhd.cu",
                             "xlxmert_tpu/ops/attention.py:159"),
                "int8_dense": ("xlxmert_tpu_torch/csrc/int8_dense.cu",
-                              "xlxmert_tpu/ops/int8_matmul.py:27")}
+                              "xlxmert_tpu/ops/int8_matmul.py:27"),
+               "fused_ffn": ("xlxmert_tpu_torch/csrc/fused_ffn.cu",
+                             "xlxmert_tpu/ops/ffn.py:28"),
+               "fused_mha": ("xlxmert_tpu_torch/csrc/fused_mha.cu",
+                             "xlxmert_tpu/ops/attention.py:36")}
     summary = []
     for name, (src, replaces) in sources.items():
         t = times[name]["mix"]
         summary.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": path["launches"][name],
+            "replaces": replaces,
+            "launches": sum(p["launches"].get(name, 0)
+                            for p in paths.values()),
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -542,16 +804,20 @@ def main(argv=None) -> int:
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump({"device": device_name, "nvidia_smi": card,
-                   "build_s": build_s,
-                   "attention": rows["mha_blhd"],
-                   "int8_dense": rows["int8_dense"], "per_forward": times,
-                   "path": path, "kernels": summary,
+                   "build_s": build_s, "kernel_rows": rows,
+                   "per_forward": times, "paths": paths,
+                   "kernels": summary,
                    "note": "times in 'kernels' are per serving forward at "
                            "B=256, weighted by VQA_LENGTH_MIX ('mix' in "
-                           "'per_forward')"},
+                           "'per_forward'); launches are summed over the "
+                           "serving runs in 'paths'"},
                   f, indent=1)
     log(f"(d) per-shape numbers in {args.out}; kernel times per serving "
-        f"forward at B={BATCH}, weighted by VQA_LENGTH_MIX")
+        f"forward at B={BATCH}, weighted by VQA_LENGTH_MIX; launches per "
+        "path: " + "; ".join(
+            f"{p}: " + ", ".join(f"{k} {n}" for k, n in
+                                 v["launches"].items() if n)
+            for p, v in paths.items()))
     print(card, flush=True)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,7 @@
 """chip_smoke.py on the CPU: its kernel phase checks every shape that its
-serving path launches a kernel at, as many times per forward as the path
-does, and its path phase runs end to end at a small width.
+serving paths launch a kernel at, as many times per forward as the paths
+do, and its path phases (int8, and bf16 in three configurations) run end
+to end at a small width.
 
 The card itself is not needed: on the CPU the kernel wrappers take their
 plain versions, and the test records the shapes they are called at.
@@ -18,6 +19,7 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
 from xlxmert_tpu_torch.cli import serve as serve_mod  # noqa: E402
 from xlxmert_tpu_torch.core.config import LxmertConfig  # noqa: E402
+from xlxmert_tpu_torch.models import lxmert  # noqa: E402
 from xlxmert_tpu_torch.ops import int8_matmul  # noqa: E402
 from xlxmert_tpu_torch.serving import lxmert_int8 as engine  # noqa: E402
 
@@ -26,15 +28,31 @@ def test_kernel_cases_cover_every_launch_of_each_full_width_forward():
     cfg = LxmertConfig()
     att = list(chip_smoke.attention_cases(cfg, chip_smoke.BATCH))
     dense = list(chip_smoke.dense_cases(cfg, chip_smoke.BATCH, 3129))
+    fmha = list(chip_smoke.fused_mha_cases(cfg, chip_smoke.BATCH))
+    ffn = chip_smoke.ffn_cases(cfg, chip_smoke.BATCH)
+    per = chip_smoke.PER_FORWARD
     for kind in chip_smoke.forward_kinds():
         assert sum(c[-1].get(kind, 0) for c in att) \
-            == chip_smoke.PER_FORWARD["mha_blhd"]
+            == per["int8"]["mha_blhd"]
         assert sum(c[-1].get(kind, 0) for c in dense) \
-            == chip_smoke.PER_FORWARD["int8_dense"]
+            == per["int8"]["int8_dense"]
+    # the bf16 paths: serving and card-vs-CPU check forwards
+    for kind in chip_smoke.KINDS["fused_ffn"]:
+        assert sum(u.get(kind, 0) for _, u in ffn) \
+            == per["bf16+fused_ffn"]["fused_ffn"] == 24
+        assert sum(c[-1].get(kind, 0) for c in fmha) \
+            == per["bf16+pallas+fused_ffn"]["fused_mha"] == 34
+        assert sum(c[-1].get(kind, 0) for c in att) == per["bf16"][
+            "mha_blhd"] == per["bf16+fused_ffn"]["mha_blhd"] == 34
     on_path = {(b, lq, lk) for b, lq, lk, _, _, _, uses in att if uses}
+    assert on_path == {(b, lq, lk) for b, lq, lk, _, _, _, uses in fmha
+                       if uses}
     for L in chip_smoke.BUCKETS:
         assert {(256, L, L), (256, L, 64), (256, 64, L)} <= on_path
+        assert {(8, L, L), (8, L, 64), (8, 64, L)} <= on_path
+        assert {256 * L, 8 * L} <= {M for M, _ in ffn}
     assert {(8, 20, 20), (8, 64, 64), (8, 20, 64), (8, 64, 20)} <= on_path
+    assert {16384, 512} <= {M for M, _ in ffn}
 
 
 def test_path_phase_launches_exactly_the_kernel_phase_cases(monkeypatch):
@@ -116,3 +134,92 @@ def test_path_phase_launches_exactly_the_kernel_phase_cases(monkeypatch):
                                   "int8_dense": 4 * cfg.l_layers
                                   + 4 * cfg.r_layers + 14 * cfg.x_layers
                                   + 3}[name]
+
+
+def test_bf16_phase_launches_exactly_the_kernel_phase_cases(monkeypatch):
+    """Phase (e) on the CPU at a small width, "auto" attention taken as
+    the card resolves it ("blhd"): each configuration serves every
+    question and calls each kernel wrapper at exactly the kernel phase's
+    (shape, count) cases, in the serving forwards and in the batch-8
+    forwards of the card-vs-CPU check (run twice there: "card" and
+    CPU)."""
+    cfg = LxmertConfig(vocab_size=4100, hidden_size=32,
+                       num_attention_heads=2, intermediate_size=48,
+                       l_layers=2, x_layers=1, r_layers=1,
+                       visual_feat_dim=16)
+    configs = {k: ("blhd" if a == "auto" else a, f, r)
+               for k, (a, f, r) in chip_smoke.BF16_CONFIGS.items()}
+    monkeypatch.setattr(chip_smoke, "BF16_CONFIGS", configs)
+    calls = []          # (kernel, shape, inside serve)
+    serving = [False]
+    orig = {n: getattr(lxmert, n) for n in ("mha_blhd", "fused_mha",
+                                             "fused_ffn")}
+
+    def recorder(name, shape):
+        def call(*a, **kw):
+            calls.append((name, shape(*a), serving[0]))
+            return orig[name](*a, **kw)
+        return call
+
+    monkeypatch.setattr(lxmert, "mha_blhd", recorder(
+        "mha_blhd", lambda q, k, v, b, *_: (q.shape[0], q.shape[1],
+                                             k.shape[1], b is not None)))
+    monkeypatch.setattr(lxmert, "fused_mha", recorder(
+        "fused_mha", lambda q, k, v, b, *_: (q.shape[0], q.shape[2],
+                                              k.shape[2], b is not None)))
+    monkeypatch.setattr(lxmert, "fused_ffn", recorder(
+        "fused_ffn", lambda x, *_: (x.numel() // x.shape[-1],)))
+    serve = serve_mod.serve
+
+    def serve_rec(*a, **kw):
+        serving[0] = True
+        try:
+            return serve(*a, **kw)
+        finally:
+            serving[0] = False
+
+    monkeypatch.setattr(serve_mod, "serve", serve_rec)
+    args = chip_smoke.parse_args(["--seed", "4"])
+    paths = chip_smoke.run_bf16_paths(torch, args, [], lambda m: None,
+                                      cfg=cfg, device="cpu")
+    assert set(paths) == set(configs)
+    # forwards of each kind, as serve() batches the stream
+    setup = chip_smoke.Setup(torch, args, lambda m: None, cfg, "cpu")
+    ids = setup.tokenizer.encode_batch([q["sent"] for q in setup.questions],
+                                       max(chip_smoke.BUCKETS))
+    n_tok, low, forwards = (ids > 0).sum(axis=1), 0, Counter()
+    for L in chip_smoke.BUCKETS:
+        n = int(((n_tok > low) & (n_tok <= L)).sum())
+        forwards[f"L={L}"] = math.ceil(n / chip_smoke.BATCH)
+        forwards[f"check L={L}"] = 2     # the "card" and the CPU copy
+        low = L
+    for path, p in paths.items():
+        assert p["answers"] == chip_smoke.QUESTIONS
+        assert p["forwards"] == sum(forwards[f"L={L}"]
+                                    for L in chip_smoke.BUCKETS)
+    checked = {p for p, (_, _, r) in configs.items() if r}
+    assert {p for p, v in paths.items() if "card_vs_cpu" in v} == checked
+    assert all(c["argmax_equal"] == c["queries"] and c["cosine"] > 0.99
+               for p in checked for c in paths[p]["card_vs_cpu"].values())
+
+    def expected(cases, runs):
+        out = Counter()
+        for *shape, uses in cases:
+            for kind, n in uses.items():
+                check = kind.startswith("check")
+                out[tuple(shape), not check] += n * forwards[kind] * runs[
+                    check]
+        return out
+
+    att = [(b, lq, lk, bias, uses) for b, lq, lk, bias, _, _, uses
+           in chip_smoke.attention_cases(cfg, chip_smoke.BATCH)]
+    fmha = [(b, lq, lk, bias, uses) for b, lq, lk, bias, _, _, uses
+            in chip_smoke.fused_mha_cases(cfg, chip_smoke.BATCH)]
+    ffn = chip_smoke.ffn_cases(cfg, chip_smoke.BATCH)
+    seen = {n: Counter((shape, inside) for k, shape, inside in calls
+                       if k == n)
+            for n in ("mha_blhd", "fused_mha", "fused_ffn")}
+    # mha_blhd: configurations 1 and 2 serve through it, 2 checks
+    assert seen["mha_blhd"] == expected(att, {False: 2, True: 1})
+    assert seen["fused_mha"] == expected(fmha, {False: 1, True: 1})
+    assert seen["fused_ffn"] == expected(ffn, {False: 2, True: 2})

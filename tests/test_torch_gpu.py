@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from xlxmert_tpu_torch.ops import attention, int8_matmul
+from xlxmert_tpu_torch.ops import attention, ffn, int8_matmul
 from xlxmert_tpu_torch.ops.quant import quantize_weight
 
 pytestmark = pytest.mark.gpu
@@ -110,3 +110,79 @@ def test_int8_dense_kernel_rejects_what_it_cannot_take(cuda):
     x = torch.zeros(4, 32, device=cuda, dtype=torch.float32)
     with pytest.raises(ValueError, match="bfloat16"):
         int8_matmul.int8_dense_fused(x, qw.w_i8, qw.scale)
+
+
+@pytest.mark.parametrize("Lq,Lk", [(20, 20), (64, 64), (8, 64), (64, 12),
+                                   (7, 33)])
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("dtype,fast,tol", [
+    (torch.bfloat16, True, 2e-2),   # bf16 scores/softmax: rounding order
+    (torch.float32, False, 1e-5),   # fp32 sums in another order
+])
+@pytest.mark.parametrize("views", [False, True])
+def test_fused_mha_kernel_matches_plain(cuda, Lq, Lk, with_bias, dtype,
+                                        fast, tol, views):
+    """(B, H, L, D) operands, contiguous or head-transposed views of the
+    projections (the model's "pallas" route); (B, Lk) bf16 bias."""
+    rng = np.random.RandomState(Lq * 100 + Lk + 7)
+    B, H, D = 6, 12, 64
+    q, k, v = (t.view(B, -1, H, D).transpose(1, 2)
+               for t in _qkv(rng, B, Lq, Lk, H * D, dtype, cuda))
+    if not views:
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    bias = None
+    if with_bias:
+        m = np.ones((B, Lk), np.float32)
+        m[2, Lk // 3:] = 0
+        bias = ((1.0 - torch.from_numpy(m)) * -1e9).to(cuda, torch.bfloat16)
+    before = attention.FUSED_MHA_KERNEL.launches
+    out = attention.fused_mha(q, k, v, bias, fast)
+    torch.cuda.synchronize()
+    assert attention.FUSED_MHA_KERNEL.launches == before + 1
+    ref = attention.fused_mha_reference(q, k, v, bias, fast)
+    assert out.shape == (B, H, Lq, D) and out.dtype == dtype
+    assert out.is_contiguous()
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= tol, err
+
+
+@pytest.mark.parametrize("M", [5120, 16384, 160, 512, 37, 1])
+@pytest.mark.parametrize("approx", [True, False])
+def test_fused_ffn_kernel_matches_plain(cuda, M, approx):
+    """bf16 rows at the model's widths (768, 3072), ragged row counts
+    too: fp32 sums in another order move an output across a bf16
+    rounding boundary at most, one step at the largest output; 99 % of
+    the outputs are equal."""
+    rng = np.random.RandomState(M)
+    H, I = 768, 3072
+
+    def t(*shape, scale=1.0, dtype=torch.float32):
+        a = rng.randn(*shape).astype(np.float32) * scale
+        return torch.from_numpy(a).to(cuda, dtype)
+
+    x = t(M, H, dtype=torch.bfloat16)
+    w1 = t(I, H, scale=0.02, dtype=torch.bfloat16)
+    w2 = t(H, I, scale=0.02, dtype=torch.bfloat16)
+    b1, b2, be = t(I, scale=0.02), t(H, scale=0.02), t(H, scale=0.02)
+    g = 1.0 + t(H, scale=0.1)
+    before = ffn.KERNEL.launches
+    out = ffn.fused_ffn(x, w1, b1, w2, b2, g, be, approx_gelu=approx)
+    torch.cuda.synchronize()
+    assert ffn.KERNEL.launches == before + 1
+    ref = ffn.fused_ffn_reference(x, w1, b1, w2, b2, g, be,
+                                  approx_gelu=approx)
+    assert out.shape == (M, H) and out.dtype == torch.bfloat16
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2.0 ** -7 * ref.float().abs().max().item(), err
+    assert (out == ref).float().mean().item() >= 0.99
+
+
+def test_fused_ffn_kernel_rejects_what_it_cannot_take(cuda):
+    x = torch.zeros(4, 768, device=cuda, dtype=torch.bfloat16)
+    w1 = torch.zeros(100, 768, device=cuda, dtype=torch.bfloat16)
+    w2 = torch.zeros(768, 100, device=cuda, dtype=torch.bfloat16)
+    vecs = [torch.zeros(n, device=cuda) for n in (100, 768, 768, 768)]
+    with pytest.raises(ValueError, match="multiple of 64"):
+        ffn.fused_ffn(x, w1, vecs[0], w2, *vecs[1:])
+    with pytest.raises(ValueError, match="bf16 rows"):
+        ffn.fused_ffn(x.float(), w1, vecs[0], w2, *vecs[1:])

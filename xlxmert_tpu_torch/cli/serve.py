@@ -5,7 +5,9 @@
     image index;
   - the forward runs through the static-calibrated int8 engine
     (serving/lxmert_int8.py), whose denses and attention are the port's
-    CUDA kernels;
+    CUDA kernels, or with --bf16 through the bf16 VQAModel
+    (models/task_heads.py) in serving mode, with every float parameter
+    cast to bf16 and the packed-head attention kernel on the card;
   - answers stream to a jsonl, with throughput printed at the end.
 
 Usage:
@@ -18,7 +20,8 @@ Usage:
 
 questions.jsonl lines: {"question_id": ..., "img_id": ..., "sent": ...}.
 `serve()` is the serving loop itself, callable with in-memory inputs;
-`serving_forward()` is the forward it runs on every batch.
+`serving_forward()` (int8) and `bf16_serving_forward()` are the forwards
+it runs on every batch.
 """
 from __future__ import annotations
 
@@ -49,7 +52,7 @@ def parse_args(argv=None):
                    "its token count instead of padding everything to "
                    "--max_text_length")
     p.add_argument("--bf16", action="store_true",
-                   help="serve the bf16 flax path (not yet ported)")
+                   help="serve the bf16 model instead of the int8 engine")
     p.add_argument("--window", type=int, default=32,
                    help="batches dispatched ahead of the result fetch")
     p.add_argument("--calib_samples", type=int, default=256,
@@ -90,17 +93,49 @@ def serving_forward(qp, hqp, cache, cfg, device):
     return run
 
 
+def bf16_serving_forward(model, cache, device):
+    """The forward `serve(bf16=True)` runs on every batch: host tensors of
+    token ids (B, L), catalog rows (B,) and the attention mask (B, L) in,
+    each query's answer index (logits.argmax(-1)) out, left on `device`
+    (not synchronized). `model` is a bf16 VQAModel on `device`."""
+    import numpy as np
+    import torch
+
+    from xlxmert_tpu_torch.serving.feature_cache import FeatureCache
+    from xlxmert_tpu_torch.utils.boxes import box_position
+
+    V = cache.table.shape[1]
+    pos = torch.from_numpy(box_position(int(np.sqrt(V)))).to(
+        device, torch.bfloat16)
+
+    @torch.inference_mode()
+    def run(ids, picks, mask):
+        ids, picks, mask = (t.to(device, non_blocking=True)
+                            for t in (ids, picks, mask))
+        feats = FeatureCache.lookup(cache.table, picks)
+        logits = model(ids, feats, pos[None].expand(ids.shape[0], V, 4),
+                       attention_mask=mask)
+        return logits.argmax(-1)
+
+    return run
+
+
 def serve(questions: List[Dict], tokenizer, cache, params: Dict, cfg,
           label2ans: Sequence[str], output: str, *, batch: int = 256,
           max_text_length: int = 20, buckets: str = "", window: int = 32,
-          calib_samples: int = 256, device="cuda") -> Dict:
+          calib_samples: int = 256, device="cuda", bf16: bool = False,
+          attention: str = "auto", fused_ffn: bool = False) -> Dict:
     """Calibrate the int8 engine on queries sampled across `questions`,
-    then answer every question into `output` (jsonl).
+    then answer every question into `output` (jsonl). With bf16=True,
+    serve the bf16 VQAModel instead, uncalibrated, in serving mode with
+    `attention` ("auto": the packed-head kernel on the card; "einsum",
+    "blhd" or "pallas") and `fused_ffn` (models/lxmert.ServingOptions).
 
     cache: a FeatureCache on `device` holding every referenced image;
     params: the flax-layout tree with "bert" and "answer_head" (numpy).
     Returns counts and rates: answers, forwards (calibration + serving),
-    steady_qps, total_qps, and the calibrated engine (qp, head_qp)."""
+    steady_qps, total_qps, and the engine: the calibrated (qp, head_qp),
+    or the bf16 VQAModel."""
     import numpy as np
     import torch
 
@@ -115,7 +150,7 @@ def serve(questions: List[Dict], tokenizer, cache, params: Dict, cfg,
         print("served 0 answers")
         return {"answers": 0, "forwards": 0, "steady_qps": None,
                 "total_qps": None, "engine": None}
-    if calib_samples < 1:
+    if calib_samples < 1 and not bf16:
         raise SystemExit("--calib_samples must be >= 1 (static int8 "
                          "scales need at least one calibration query)")
     B, L, V = batch, max_text_length, cache.table.shape[1]
@@ -171,29 +206,42 @@ def serve(questions: List[Dict], tokenizer, cache, params: Dict, cfg,
         all_batches = [build_batch(questions[s:s + B], B)
                        for s in range(0, len(questions), B)]
 
-    qp = engine.prepare_params(params["bert"], cfg, dev)
-    hqp = engine.prepare_answer_head(params["answer_head"], dev)
-    n_calib = min(calib_samples, len(questions))
-    calib_idx = np.random.RandomState(0).choice(len(questions), size=n_calib,
-                                                replace=False)
-    calib_qs = [questions[i] for i in calib_idx]
-    Bc = 8
-    calib_pos = pos[None].expand(Bc, V, 4)
-    calib_batches = []
-    for s in range(0, n_calib, Bc):
-        _, (c_ids, c_picks, c_mask) = build_batch(calib_qs[s:s + Bc], Bc)
-        c_feats = FeatureCache.lookup(cache.table, c_picks.to(dev)).float()
-        calib_batches.append((c_ids.to(dev), c_feats, calib_pos,
-                              c_mask.to(dev)))
-    print(f"calibrating int8 scales on {len(calib_batches)} batches "
-          f"({n_calib} queries sampled across the stream)")
-    engine.calibrate(qp, hqp, calib_batches, cfg)
-    engine.apply_calibration(qp, hqp)
-    engine.assert_fully_calibrated(qp, hqp)
-    n_calib_batches = len(calib_batches)
-    del calib_batches
+    if bf16:
+        from xlxmert_tpu_torch.models.lxmert import ServingOptions
+        from xlxmert_tpu_torch.models.task_heads import vqa_model
 
-    run = serving_forward(qp, hqp, cache, cfg, dev)
+        model = vqa_model(params, cfg, len(label2ans), dtype=torch.bfloat16,
+                          options=ServingOptions(True, attention, fused_ffn),
+                          device=dev)
+        n_calib_batches = 0
+        run = bf16_serving_forward(model, cache, dev)
+        path = "bf16"
+    else:
+        qp = engine.prepare_params(params["bert"], cfg, dev)
+        hqp = engine.prepare_answer_head(params["answer_head"], dev)
+        n_calib = min(calib_samples, len(questions))
+        calib_idx = np.random.RandomState(0).choice(
+            len(questions), size=n_calib, replace=False)
+        calib_qs = [questions[i] for i in calib_idx]
+        Bc = 8
+        calib_pos = pos[None].expand(Bc, V, 4)
+        calib_batches = []
+        for s in range(0, n_calib, Bc):
+            _, (c_ids, c_picks, c_mask) = build_batch(calib_qs[s:s + Bc],
+                                                      Bc)
+            c_feats = FeatureCache.lookup(cache.table,
+                                          c_picks.to(dev)).float()
+            calib_batches.append((c_ids.to(dev), c_feats, calib_pos,
+                                  c_mask.to(dev)))
+        print(f"calibrating int8 scales on {len(calib_batches)} batches "
+              f"({n_calib} queries sampled across the stream)")
+        engine.calibrate(qp, hqp, calib_batches, cfg)
+        engine.apply_calibration(qp, hqp)
+        engine.assert_fully_calibrated(qp, hqp)
+        n_calib_batches = len(calib_batches)
+        del calib_batches
+        run = serving_forward(qp, hqp, cache, cfg, dev)
+        path = "int8_static"
     n = 0
     pending: deque = deque()
     t_begin = time.time()
@@ -224,26 +272,23 @@ def serve(questions: List[Dict], tokenizer, cache, params: Dict, cfg,
     total_qps = len(questions) / max(t_end - t_begin, 1e-9)
     steady_qps = n / max(t_end - t0, 1e-9) if n else None
     if n:
-        print(f"served {len(questions)} answers (int8_static, {dev.type});"
+        print(f"served {len(questions)} answers ({path}, {dev.type});"
               f" steady-state {steady_qps:.1f} q/s, total wall-clock "
               f"{total_qps:.1f} q/s (incl. warm-up)")
     else:
-        print(f"served {len(questions)} answers (int8_static, {dev.type});"
+        print(f"served {len(questions)} answers ({path}, {dev.type});"
               f" total wall-clock {total_qps:.1f} q/s")
     return {"answers": len(questions),
             "forwards": n_calib_batches + len(all_batches),
             "calib_forwards": n_calib_batches,
             "serve_forwards": len(all_batches),
             "steady_qps": steady_qps, "total_qps": total_qps,
-            "engine": (qp, hqp)}
+            "engine": model if bf16 else (qp, hqp)}
+
 
 
 def main(argv=None):
     ns = parse_args(argv)
-    if ns.bf16:
-        raise NotImplementedError(
-            "--bf16: the bf16 flax serving path is not yet ported to "
-            "xlxmert_tpu_torch; serve the int8 engine (the default)")
 
     from xlxmert_tpu_torch.core.checkpoint import load_any_checkpoint
     from xlxmert_tpu_torch.core.config import LxmertConfig
@@ -282,7 +327,7 @@ def main(argv=None):
     serve(questions, tokenizer, cache, params, cfg, label2ans, ns.output,
           batch=ns.batch, max_text_length=ns.max_text_length,
           buckets=ns.buckets, window=ns.window,
-          calib_samples=ns.calib_samples, device=dev)
+          calib_samples=ns.calib_samples, device=dev, bf16=ns.bf16)
     return ns.output
 
 

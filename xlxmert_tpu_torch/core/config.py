@@ -34,6 +34,14 @@ class LxmertConfig:
     num_attr_labels: int = 400
     num_clusters: int = 10000
 
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def clustering(self) -> bool:
+        return self.num_clusters > 0
+
     @classmethod
     def from_yaml(cls, path: str) -> "LxmertConfig":
         import yaml

@@ -11,6 +11,10 @@ released torch checkpoint is converted to that layout first:
     `scale`; embedding tables stay row-major as `embedding`;
   - weight-tied tensors are dropped; `out_cluster.bias` becomes the flat
     param `out_cluster_bias`.
+
+`flax_to_state_dict` goes the other way for the port's own modules
+(models/), so a flax tree loads into them and
+`convert_torch_state_dict(model.state_dict())` gives the tree back.
 """
 from __future__ import annotations
 
@@ -97,6 +101,41 @@ def convert_torch_state_dict(state_dict: Mapping[str, Any]
                 path[-1] = "kernel"
         _insert(tree, tuple(path), arr)
     return tree
+
+
+def _unfold_index(name: str) -> str:
+    """`layer_3` -> `layer.3`: the inverse of `_fold_indices`."""
+    head, sep, tail = name.rpartition("_")
+    return f"{head}.{tail}" if sep and head and tail.isdigit() else name
+
+
+def flax_to_state_dict(tree: Mapping[str, Any], prefix: str = ""
+                       ) -> Dict[str, Any]:
+    """Flax-layout nested param dict (numpy leaves) -> torch state_dict
+    for the port's modules, which keep HF LXMERT's attribute names: the
+    inverse of `convert_torch_state_dict` for Linear, LayerNorm and
+    embedding leaves (`kernel` (in, out) -> `weight` (out, in); `scale`
+    and `embedding` -> `weight`; `layer_3` -> `layer.3`). Values are
+    fp32 CPU tensors."""
+    import torch
+
+    out: Dict[str, Any] = {}
+    for name, node in tree.items():
+        if isinstance(node, Mapping):
+            out.update(flax_to_state_dict(
+                node, f"{prefix}{_unfold_index(name)}."))
+            continue
+        arr = np.asarray(node)
+        if name == "kernel":
+            if arr.ndim != 2:
+                raise ValueError(f"{prefix}kernel: only 2-D kernels map to "
+                                 f"Linear weights, got shape {arr.shape}")
+            name, arr = "weight", arr.T
+        elif name in ("scale", "embedding"):
+            name = "weight"
+        out[prefix + name] = torch.from_numpy(
+            np.array(arr, dtype=np.float32, order="C"))
+    return out
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, Any]:

@@ -3,8 +3,9 @@
 Each source under `xlxmert_tpu_torch/csrc/` becomes one shared library
 with a plain `extern "C"` interface, compiled by `nvcc` for Hopper
 (`sm_90a`) into `xlxmert_tpu_torch/_build/` (listed in `.gitignore`).
-The file name carries a hash of the source, so an edited kernel is
-rebuilt and a built one is reused. The sources include no PyTorch
+The file name carries a hash of the source and of the local headers
+it includes (`#include "..."`: device code two kernels share), so an
+edited kernel is rebuilt and a built one is reused. The sources include no PyTorch
 header: a build takes seconds, not minutes, and needs no `ninja`.
 
 Each source exports `<name>_launch`, which returns the `cudaError_t` of
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -30,6 +32,9 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared",
                            "-Xcompiler", "-fPIC"]
+
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
 
 class _Build(NamedTuple):
     proc: subprocess.Popen
@@ -67,11 +72,25 @@ class Kernel:
         self._lock = threading.Lock()
 
     # -- build -------------------------------------------------------------
+    def sources(self) -> List[str]:
+        """The source and every local header it includes, transitively."""
+        seen, todo = [], [self.source]
+        while todo:
+            path = todo.pop()
+            if path in seen:
+                continue
+            seen.append(path)
+            with open(path, "rb") as f:
+                todo += [os.path.join(os.path.dirname(path), m.decode())
+                         for m in _LOCAL_INCLUDE.findall(f.read())]
+        return seen
+
     def so_path(self) -> str:
-        with open(self.source, "rb") as f:
-            digest = hashlib.sha256(
-                f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        return os.path.join(BUILD_DIR, f"{self.name}-{digest}.so")
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for path in self.sources():
+            with open(path, "rb") as f:
+                h.update(f.read())
+        return os.path.join(BUILD_DIR, f"{self.name}-{h.hexdigest()[:16]}.so")
 
     def start_build(self, verbose: bool = False) -> Optional[_Build]:
         """Start nvcc for this source unless its library is built;

@@ -1,15 +1,23 @@
-"""Fused multi-head attention over packed heads, forward only.
+"""Fused multi-head attention, forward only: two layouts, one kernel.
 
-Port of `xlxmert_tpu/ops/attention.py::mha_blhd`: q (B, Lq, H*D), k/v
-(B, Lk, H*D), optional additive key bias (B, 1, 1, Lk) or (B, Lk); the
-result is (B, Lq, H*D), the layout the out-projection consumes, so no
-head is ever transposed in device memory. The CUDA kernel is
-`xlxmert_tpu_torch/csrc/mha_blhd.cu` (its header says what bounds it on
-an H100 and what the design does about it); `mha_blhd_reference` is the
-same function in plain PyTorch.
+`mha_blhd` ports `xlxmert_tpu/ops/attention.py::mha_blhd`: q (B, Lq,
+H*D), k/v (B, Lk, H*D), optional additive key bias (B, 1, 1, Lk) or
+(B, Lk); the result is (B, Lq, H*D), the layout the out-projection
+consumes, so no head is ever transposed in device memory.
 
-`mha_blhd` takes the plain version only for tensors on the CPU. For CUDA
-tensors it launches the kernel or raises.
+`fused_mha` ports `xlxmert_tpu/ops/attention.py::fused_mha`: the same
+function over (B, H, L, D) operands, with a (B, Lk) bias, returning
+(B, H, Lq, D). Only the layout differs: head h sits at a head stride,
+not at column h*D.
+
+Both CUDA kernels are `xlxmert_tpu_torch/csrc/attention.cuh` (its header
+says what bounds it on an H100 and what the design does about it),
+exported by `csrc/mha_blhd.cu` and `csrc/fused_mha.cu`, each with its
+own launch count. `mha_blhd_reference` and `fused_mha_reference` are
+the same functions in plain PyTorch, with the same rounding points.
+
+The wrappers take the plain versions only for tensors on the CPU. For
+CUDA tensors they launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -25,6 +33,10 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNEL = Kernel("mha_blhd", "mha_blhd.cu",
                 [_P, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _LL, _LL,
                  _LL, _LL, ctypes.c_float, _I, _I, _P])
+# q/k/v batch, head and row strides (9 values), then scale, dtype, fast
+FUSED_MHA_KERNEL = Kernel("fused_mha", "fused_mha.cu",
+                          [_P, _P, _P, _P, _P, _I, _I, _I, _I]
+                          + [_LL] * 9 + [ctypes.c_float, _I, _I, _P])
 
 MAX_LEN = 64
 HEAD_DIM = 64
@@ -39,23 +51,37 @@ def softmax_last(s: torch.Tensor) -> torch.Tensor:
     return e / e.float().sum(-1, keepdim=True).to(e.dtype)
 
 
-def mha_blhd_reference(q, k, v, bias, n_heads: int,
-                       fast: bool = True) -> torch.Tensor:
-    """Plain PyTorch version of the kernel (same rounding points)."""
-    B, Lq, HD = q.shape
-    Lk = k.shape[1]
-    D = HD // n_heads
-    acc = q.dtype if fast else torch.float32
-    qh = q.reshape(B, Lq, n_heads, D).transpose(1, 2).float()
-    kh = k.reshape(B, Lk, n_heads, D).transpose(1, 2).float()
-    vh = v.reshape(B, Lk, n_heads, D).transpose(1, 2)
-    s = (qh @ kh.transpose(-1, -2) * float(np.float32(1.0 / np.sqrt(D))))
+def _attend(qh, kh, vh, bias, fast: bool) -> torch.Tensor:
+    """The kernels' arithmetic over (B, H, L, D): fp32 q.k^T, times
+    1/sqrt(D), cast to the accumulator type (the input type when `fast`,
+    else fp32), plus the bias in that type, softmax, p cast to the input
+    type, fp32 p.v, the result in the input type."""
+    B, Lk = kh.shape[0], kh.shape[2]
+    D = qh.shape[-1]
+    acc = qh.dtype if fast else torch.float32
+    s = qh.float() @ kh.float().transpose(-1, -2) * float(
+        np.float32(1.0 / np.sqrt(D)))
     s = s.to(acc)
     if bias is not None:
         s = s + bias.reshape(B, 1, 1, Lk).to(acc)
-    p = softmax_last(s).to(v.dtype)
-    ctx = (p.float() @ vh.float()).to(q.dtype)
+    p = softmax_last(s).to(vh.dtype)
+    return (p.float() @ vh.float()).to(qh.dtype)
+
+
+def mha_blhd_reference(q, k, v, bias, n_heads: int,
+                       fast: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of the packed-head kernel."""
+    B, Lq, HD = q.shape
+    Lk = k.shape[1]
+    D = HD // n_heads
+    heads = lambda t, L: t.reshape(B, L, n_heads, D).transpose(1, 2)  # noqa
+    ctx = _attend(heads(q, Lq), heads(k, Lk), heads(v, Lk), bias, fast)
     return ctx.transpose(1, 2).reshape(B, Lq, HD)
+
+
+def fused_mha_reference(q, k, v, bias, fast: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the (B, H, L, D) kernel."""
+    return _attend(q, k, v, bias, fast)
 
 
 def _check_operand(t: torch.Tensor, name: str, B: int, HD: int, vec: int):
@@ -115,4 +141,62 @@ def mha_blhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         n_heads, Lq, Lk, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
         v.stride(0), v.stride(1), float(np.float32(1.0 / np.sqrt(D))),
         _DTYPE_CODE[q.dtype], int(bool(fast)), stream)
+    return out
+
+
+def _check_heads(t: torch.Tensor, name: str, B: int, H: int, vec: int):
+    if t.dim() != 4 or t.shape[0] != B or t.shape[1] != H \
+            or t.shape[3] != HEAD_DIM:
+        raise ValueError(f"fused_mha: {name} has shape {tuple(t.shape)}, "
+                         f"expected ({B}, {H}, L, {HEAD_DIM})")
+    if t.stride(3) != 1 or any(st % vec for st in t.stride()[:3]) \
+            or t.data_ptr() % 16:
+        raise ValueError(f"fused_mha: {name} needs unit last stride, "
+                         f"16-byte alignment and batch/head/row strides "
+                         f"that are multiples of {vec} elements; got "
+                         f"strides {t.stride()}")
+
+
+def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              bias: Optional[torch.Tensor], fast: bool = False
+              ) -> torch.Tensor:
+    """Fused attention over (B, H, L, D) operands; see the module
+    docstring. Returns (B, H, Lq, D), contiguous. q, k and v may be
+    strided views (a head transpose of a projection's output): only
+    their last dimension must be contiguous. The kernel takes head dim
+    64, lengths up to 64 and a contiguous bf16 (B, Lk) bias."""
+    if q.device.type == "cpu":
+        return fused_mha_reference(q, k, v, bias, fast)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_mha: unsupported device {q.device}")
+    B, H, Lq, _ = q.shape
+    Lk = k.shape[2]
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"fused_mha: q/k/v must share one dtype of "
+                         f"{list(_DTYPE_CODE)}; got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    if not (1 <= Lq <= MAX_LEN and 1 <= Lk <= MAX_LEN):
+        raise ValueError(f"fused_mha: lengths ({Lq}, {Lk}) exceed "
+                         f"{MAX_LEN}")
+    if v.shape[2] != Lk:
+        raise ValueError("fused_mha: k and v lengths differ")
+    vec = 16 // q.element_size()
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        if t.device != q.device:
+            raise ValueError(f"fused_mha: {name} is on {t.device}")
+        _check_heads(t, name, B, H, vec)
+    if bias is not None and (
+            bias.dtype != torch.bfloat16 or bias.device != q.device
+            or bias.numel() != B * Lk or not bias.is_contiguous()):
+        raise ValueError("fused_mha: bias must be a contiguous bf16 (B, Lk) "
+                         f"tensor on {q.device}")
+    out = torch.empty((B, H, Lq, HEAD_DIM), dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    FUSED_MHA_KERNEL.launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(), B, H,
+        Lq, Lk, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        float(np.float32(1.0 / np.sqrt(HEAD_DIM))), _DTYPE_CODE[q.dtype],
+        int(bool(fast)), stream)
     return out
