@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed 0] [--out runs/chip_smoke.json]
 
 Phases, each of which fails the script on error:
-  (a) device and build: the card's name, count and power limit; the four
+  (a) device and build: the card's name, count and power limit; the five
       CUDA kernels built from csrc/ in parallel (nvcc, -Xptxas -v);
   (b) kernels: each kernel against its plain PyTorch version on the card
       at every shape the paths give it (serving at B=256 for each bucket
@@ -14,7 +14,10 @@ Phases, each of which fails the script on error:
       time the card could take (bytes over 3.35 TB/s or operations over
       the peak rate of their type, whichever is larger); the times summed
       per forward of each kind and per serving forward drawn from
-      VQA_LENGTH_MIX;
+      VQA_LENGTH_MIX. fused_block also gets a composed time: the same
+      chain through the int8 engine (int8 dense kernel + eager glue), the
+      launches it replaces; its library time is that chain with
+      torch._int_mm for the products;
   (c) the serving path at full width (LxmertConfig(): 9/5/5 layers, 768
       hidden, 2048-d grid features, 3,129 answers) with random weights
       from --seed: a 512-image bf16 catalog in device memory, 2,048
@@ -36,6 +39,12 @@ Phases, each of which fails the script on error:
       + 24 fused_ffn). Each configuration's launch counts are checked
       exactly, and the last two are held to the same model on the CPU
       (plain versions, the same attention route) as in (c);
+  (f) the whole-block fused int8 path (cli/serve.serve(fused=True)) on
+      the same weights and questions: calibration forwards must launch
+      34 mha_blhd + 129 int8_dense each, serving forwards 34 fused_block
+      + 34 mha_blhd + 5 int8_dense; the same fused engine on the CPU is
+      held to the card as in (c), and its answers are counted against
+      (c)'s;
   (d) one JSON line listing the kernels (times per serving forward of
       the length mix), then the device line last.
 
@@ -59,14 +68,21 @@ INT8_TOL = 0.0                     # exact integer products, same epilogue
 # fused_ffn: fp32 sums in another order can move a bf16 output across a
 # rounding boundary: one bf16 step at the largest output
 FFN_TOL_REL = 2.0 ** -7
+# fused_block: exact int32 products, but LayerNorm sums in another order
+# can move a bf16 y1 by a step, and so an int8 step downstream
+BLOCK_TOL_REL = 2.0 ** -6
+BLOCK_COSINE = 0.9999
 BUCKETS = (8, 12, 16, 20)
 BATCH = 256
 CALIB_BATCH = 8       # cli/serve calibrates on batches of 8
-# launches per forward of each path: the int8 engine (c) and the three
-# bf16 configurations (e); a kernel launches as often in every forward
-# of every path that runs it
+# launches per forward of each path: the int8 engine (c), the three
+# bf16 configurations (e) and the fused serving forwards (f), whose
+# calibration forwards are the int8 engine's; the kernel phase covers a
+# kernel's launches in the first path that runs it
 PER_FORWARD = {
     "int8": {"mha_blhd": 34, "int8_dense": 129},
+    "int8+fused_block": {"fused_block": 34, "mha_blhd": 34,
+                         "int8_dense": 5},
     "bf16": {"mha_blhd": 34},
     "bf16+fused_ffn": {"mha_blhd": 34, "fused_ffn": 24},
     "bf16+pallas+fused_ffn": {"fused_mha": 34, "fused_ffn": 24},
@@ -143,7 +159,8 @@ def check_kinds():
 KINDS = {"mha_blhd": forward_kinds() + check_kinds(),
          "int8_dense": forward_kinds(),
          "fused_ffn": forward_kinds()[:-1] + check_kinds(),
-         "fused_mha": forward_kinds()[:-1] + check_kinds()}
+         "fused_mha": forward_kinds()[:-1] + check_kinds(),
+         "fused_block": forward_kinds()[:-1] + check_kinds()}
 
 
 def attention_shapes(cfg, B):
@@ -311,6 +328,120 @@ def check_ffn(torch, F, ffn, cfg, rng, log):
     return rows
 
 
+def fused_block_cases(cfg, B):
+    """(M, variant, uses) of fused_block: "ffn+tail" (every language,
+    visual and x-layer self block but the last x-layer's), "ffn" (the
+    last x-layer's two self blocks) and "tail" (the x-layers' cross
+    output blocks, whose tail is the self-attention QKV), at the text
+    rows (batch x L) and visual rows (batch x 64) of every serving and
+    check forward. Every tail is 3 x hidden wide."""
+    nl, nr, nx = cfg.l_layers, cfg.r_layers, cfg.x_layers
+    shapes = {}
+    for L in BUCKETS:
+        for kind, b in ((f"L={L}", B), (f"check L={L}", CALIB_BATCH)):
+            for M, n_stack in ((b * L, nl), (b * 64, nr)):
+                for variant, n in (("ffn+tail", n_stack + nx - 1),
+                                   ("ffn", 1), ("tail", nx)):
+                    if n:
+                        uses = shapes.setdefault((M, variant), {})
+                        uses[kind] = uses.get(kind, 0) + n
+    return [(M, v, uses) for (M, v), uses in sorted(shapes.items())]
+
+
+def check_fused_block(torch, fb, int8_matmul, quant, cfg, rng, log):
+    """fused_block against fused_block_reference at every (M, variant)
+    of the fused path, with random calibrated weights at the model's
+    widths. Also times the chain it replaces: the reference's glue with
+    the int8 dense kernel for the products ("composed") and with
+    torch._int_mm ("library", a yardstick the port never calls)."""
+    Hd, I = cfg.hidden_size, cfg.intermediate_size
+    Nq = 3 * Hd
+
+    def weight(k, n, amax):
+        w = torch.randn(k, n, generator=rng, device="cuda") * 0.03
+        b = torch.randn(n, generator=rng, device="cuda") * 0.05
+        qw = quant.quantize_weight(w.cpu().numpy(), b.cpu().numpy())
+        return fb.fused_weight(quant.with_activation_scale(qw, amax)).to(
+            "cuda")
+
+    def vec(scale, shift=0.0):
+        return torch.randn(Hd, generator=rng, device="cuda") * scale + shift
+
+    out_w, w1, w2 = weight(Hd, Hd, 4.0), weight(Hd, I, 4.5), \
+        weight(I, Hd, 2.5)
+    tail_w = weight(Hd, Nq, 4.5)
+    ln1, ln2 = fb.LN(vec(0.1, 1.0), vec(0.05)), fb.LN(vec(0.1, 1.0),
+                                                     vec(0.05))
+
+    def kernel_dense(x, fw):
+        return int8_matmul.int8_dense_fused(x, fw.w_i8, fw.out_scale.view(-1),
+                                            fw.bias.view(-1), fw.inv_a)
+
+    def int_mm_dense(x, fw):
+        x8 = quant.quantize_static_values(x, fw.inv_a)
+        acc = torch._int_mm(x8.reshape(-1, x8.shape[-1]), fw.w_i8.t())
+        return (acc.float() * fw.out_scale + fw.bias).to(torch.bfloat16)
+
+    rows = []
+    for M, variant, uses in fused_block_cases(cfg, BATCH):
+        ffn_on, tail_on = variant != "tail", variant != "ffn"
+        ctx = torch.randn(M, Hd, generator=rng, device="cuda").to(
+            torch.bfloat16)
+        x = torch.randn(M, Hd, generator=rng, device="cuda").to(
+            torch.bfloat16)
+        ffn_args = (w1, w2, ln2) if ffn_on else (None,) * 3
+        tail = tail_w if tail_on else None
+        args = (ctx, x, out_w, ln1.scale, ln1.bias,
+                *((w1, w2, ln2.scale, ln2.bias) if ffn_on else (None,) * 4))
+
+        def kernel_fn():
+            return fb.fused_block(*args, tail_w=tail, has_ffn=ffn_on)
+
+        def chain(dense=fb.plain_dense):
+            return fb.fused_block_reference(ctx, x, out_w, ln1, *ffn_args,
+                                            tail, dense=dense)
+
+        out, ref = kernel_fn(), chain()
+        torch.cuda.synchronize()
+        outs, refs = (out, ref) if tail_on else ((out,), (ref,))
+        err, tol, cos = 0.0, 0.0, 1.0
+        for name, o, r in zip(("y", "tail"), outs, refs):
+            o, r = o.float(), r.float()
+            e, t = (o - r).abs().max().item(), \
+                BLOCK_TOL_REL * r.abs().max().item()
+            c = cosine(o, r)
+            if not (torch.isfinite(o).all() and c > BLOCK_COSINE and e <= t):
+                fail(f"fused_block M={M} {variant} {name}: max abs err {e} "
+                     f"(tol {t}), cosine {c} (> {BLOCK_COSINE})")
+            err, tol, cos = max(err, e), max(tol, t), min(cos, c)
+        kernel = time_ms(torch, kernel_fn)
+        plain = time_ms(torch, chain)
+        composed = time_ms(torch, lambda: chain(kernel_dense))
+        library = None
+        try:
+            library = time_ms(torch, lambda: chain(int_mm_dense))
+        except RuntimeError as e:
+            log(f"  torch._int_mm refused fused_block M={M}: {e}")
+        n_w = Hd * Hd + (2 * Hd * I if ffn_on else 0) + (
+            Nq * Hd if tail_on else 0)
+        n_vec = 4 * Hd + (2 * I + 4 * Hd if ffn_on else 0) + (
+            2 * Nq if tail_on else 0)
+        nbytes = 3 * M * Hd * 2 + n_w + 4 * n_vec + (
+            M * Nq * 2 if tail_on else 0)
+        row = {"M": M, "variant": variant, "I": I if ffn_on else 0,
+               "Nq": Nq if tail_on else 0, "max_abs_err": err, "tol": tol,
+               "cosine": cos, "ms": kernel, "plain_ms": plain,
+               "library_ms": library, "composed_ms": composed,
+               "uses": uses, **bound(nbytes, 2.0 * M * n_w, "int8")}
+        rows.append(row)
+        lib = "n/a" if library is None else f"{library:.4f}"
+        log(f"  fused_block M={M:5d} {variant:8} err {err:.2e} (tol "
+            f"{tol:.2e}) cos {cos:.7f}  kernel {kernel:.4f} ms  plain "
+            f"{plain:.4f}  composed {composed:.4f}  _int_mm chain {lib}  "
+            f"bound {row['bound_ms']:.4f} ({row['bound_by']})")
+    return rows
+
+
 def dense_cases(cfg, B, n_answers):
     """(M, K, N, static, uses): `uses` maps each forward kind to this
     shape's launches per forward of that kind. Serving forwards run the
@@ -392,11 +523,12 @@ def per_forward(rows, mix, kinds):
     """A kernel's times summed over its launches in one forward of each
     kind, and over a serving forward drawn from `mix` (the share of
     questions, hence of full batches, at each bucket length)."""
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms", "bytes_ms", "ops_ms")
+    keys = ("ms", "plain_ms", "library_ms", "composed_ms", "bound_ms",
+            "bytes_ms", "ops_ms")
     out = {}
     for kind in kinds:
         used = [(r, r["uses"][kind]) for r in rows if kind in r["uses"]]
-        out[kind] = {k: (None if any(r[k] is None for r, _ in used)
+        out[kind] = {k: (None if any(r.get(k) is None for r, _ in used)
                          else sum(r[k] * n for r, n in used)) for k in keys}
     out["mix"] = {k: (None if any(out[f"L={L}"][k] is None for L in BUCKETS)
                       else sum(mix[L] * out[f"L={L}"][k] for L in BUCKETS))
@@ -494,7 +626,8 @@ class Setup:
     def serve(self, torch, kernels, **kw):
         """cli/serve.serve over the questions, every kernel's count set to
         0 just before and read just after. Returns (serve's result, the
-        launches, peak device bytes, wall seconds)."""
+        launches, peak device bytes, wall seconds, {question_id:
+        answer})."""
         from xlxmert_tpu_torch.cli.serve import serve
 
         with tempfile.TemporaryDirectory() as tmp:
@@ -520,7 +653,8 @@ class Setup:
                 self.questions))) or not all(a["answer"] in self.label2ans
                                              for a in answers):
             fail("the answers file does not answer every question once")
-        return res, launches, peak, wall
+        return res, launches, peak, wall, {a["question_id"]: a["answer"]
+                                           for a in answers}
 
     def check_batches(self, torch):
         """One batch of CALIB_BATCH queries per bucket, at its bucket
@@ -601,14 +735,14 @@ def card_vs_cpu(torch, batches, card, host, n_answers, log):
 def run_path(torch, args, kernels, log, cfg=None, device="cuda",
              setup=None):
     """Phase (c) at `cfg` (default: the full-width LxmertConfig()).
-    Returns its numbers and the calibrated engine (qp, head_qp), left on
-    the CPU. With device="cpu" and a narrow cfg it runs on the CPU, as
-    its test does."""
+    Returns its numbers, the calibrated engine (qp, head_qp), left on
+    the CPU, and the answers. With device="cpu" and a narrow cfg it runs
+    on the CPU, as its test does."""
     from xlxmert_tpu_torch.serving import lxmert_int8 as engine
 
     setup = setup or Setup(torch, args, log, cfg, device)
     cfg = setup.cfg
-    res, launches, peak, wall = setup.serve(
+    res, launches, peak, wall, answers = setup.serve(
         torch, kernels, calib_samples=CALIB_SAMPLES)
     check_launches("int8", launches, res["forwards"])
     log(f"  served {res['answers']} answers in {res['forwards']} forwards "
@@ -647,7 +781,7 @@ def run_path(torch, args, kernels, log, cfg=None, device="cuda",
     return {"launches": launches, "forwards": res["forwards"],
             "answers": res["answers"], "steady_qps": res["steady_qps"],
             "total_qps": res["total_qps"], "peak_bytes": peak,
-            "card_vs_cpu": checks}, (qp, hqp)
+            "card_vs_cpu": checks}, (qp, hqp), answers
 
 
 def run_bf16_paths(torch, args, kernels, log, cfg=None, device="cuda",
@@ -662,7 +796,7 @@ def run_bf16_paths(torch, args, kernels, log, cfg=None, device="cuda",
     setup = setup or Setup(torch, args, log, cfg, device)
     out = {}
     for path, (attention, fused_ffn, cpu_route) in BF16_CONFIGS.items():
-        res, launches, peak, wall = setup.serve(
+        res, launches, peak, wall, _ = setup.serve(
             torch, kernels, bf16=True, attention=attention,
             fused_ffn=fused_ffn)
         check_launches(path, launches, res["forwards"])
@@ -705,6 +839,78 @@ def run_bf16_paths(torch, args, kernels, log, cfg=None, device="cuda",
     return out
 
 
+def run_fused_path(torch, args, kernels, log, cfg=None, device="cuda",
+                   setup=None, int8_answers=None):
+    """Phase (f): cli/serve.serve(fused=True), with the launches of its
+    calibration forwards (the int8 engine's) and of its serving forwards
+    checked apart; the same fused engine on the CPU (plain versions) held
+    to the card as in (c); its answers counted against `int8_answers`
+    ((c)'s, on the same questions) when given. Returns its numbers."""
+    from xlxmert_tpu_torch.serving import lxmert_int8 as engine
+    from xlxmert_tpu_torch.serving.lxmert_fused import lxmert_forward_fused
+
+    setup = setup or Setup(torch, args, log, cfg, device)
+    cfg = setup.cfg
+    calib = {}
+
+    def on_calibrated():
+        calib.update((k.name, k.launches) for k in kernels)
+        for k in kernels:
+            k.launches = 0
+
+    res, launches, peak, wall, answers = setup.serve(
+        torch, kernels, calib_samples=CALIB_SAMPLES, fused=True,
+        on_calibrated=on_calibrated)
+    check_launches("int8", calib, res["calib_forwards"])
+    check_launches("int8+fused_block", launches, res["serve_forwards"])
+    log(f"  served {res['answers']} answers in {res['calib_forwards']} "
+        f"calibration + {res['serve_forwards']} serving forwards, wall "
+        f"{wall:.1f}s; steady-state {res['steady_qps']:.1f} q/s, total "
+        f"{res['total_qps']:.1f} q/s, peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    for what, got, n in (("calibration", calib, res["calib_forwards"]),
+                         ("serving", launches, res["serve_forwards"])):
+        log(f"  {what} launches: " + ", ".join(
+            f"{k} {v} ({v // n} per forward)" for k, v in got.items() if v))
+
+    fp, hqp = res["engine"]
+    batches = setup.check_batches(torch)
+
+    def logits(device):
+        out = []
+        with torch.inference_mode():
+            for _, ids, mask, feats, pos in batches:
+                _, _, pooled = lxmert_forward_fused(
+                    fp, ids.to(device), feats.to(device), pos.to(device),
+                    attention_mask=mask.to(device),
+                    n_heads=cfg.num_attention_heads)
+                out.append(engine.answer_head_forward(hqp, pooled).cpu())
+        return out
+
+    card = logits(device)
+    fp.to("cpu")
+    hqp.to("cpu")
+    t0 = time.time()
+    host = logits("cpu")
+    log(f"  card vs CPU, {CALIB_BATCH} queries per bucket (CPU forwards "
+        f"{time.time() - t0:.1f}s):")
+    out = {"launches": {k: calib.get(k, 0) + n for k, n in launches.items()},
+           "calibration_launches": calib, "serving_launches": launches,
+           "forwards": res["forwards"],
+           "calib_forwards": res["calib_forwards"],
+           "serve_forwards": res["serve_forwards"],
+           "answers": res["answers"], "steady_qps": res["steady_qps"],
+           "total_qps": res["total_qps"], "peak_bytes": peak,
+           "card_vs_cpu": card_vs_cpu(torch, batches, card, host,
+                                      setup.n_answers, log)}
+    if int8_answers is not None:
+        same = sum(a == int8_answers[q] for q, a in answers.items())
+        log(f"  fused answers equal to the int8 path's (c): "
+            f"{same}/{len(answers)}")
+        out["answers_equal_to_int8"] = same
+    return out
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     try:
@@ -713,7 +919,7 @@ def main(argv=None) -> int:
 
         from xlxmert_tpu_torch.core.config import LxmertConfig
         from xlxmert_tpu_torch.ops import _build, attention, ffn, int8_matmul
-        from xlxmert_tpu_torch.ops import quant
+        from xlxmert_tpu_torch.ops import fused_block, quant
         from xlxmert_tpu_torch.serving import lxmert_int8 as engine
     except ImportError as e:
         fail(f"cannot import the port ({e}): run from the repository root")
@@ -735,7 +941,7 @@ def main(argv=None) -> int:
     log(f"(a) device: {device_name} x{count}; torch {torch.__version__} "
         f"CUDA {torch.version.cuda}")
     kernels = [attention.KERNEL, int8_matmul.KERNEL, ffn.KERNEL,
-               attention.FUSED_MHA_KERNEL]
+               attention.FUSED_MHA_KERNEL, fused_block.KERNEL]
     build_s = _build.build_all(kernels, verbose=True)
     log(f"    kernels built in {build_s:.1f}s (parallel nvcc)")
     for k in kernels:
@@ -755,7 +961,9 @@ def main(argv=None) -> int:
                                      3129, rng, log),
             "fused_ffn": check_ffn(torch, F, ffn, cfg, rng, log),
             "fused_mha": check_attention(torch, F, attention, cfg, rng,
-                                         log, name="fused_mha")}
+                                         log, name="fused_mha"),
+            "fused_block": check_fused_block(torch, fused_block, int8_matmul,
+                                             quant, cfg, rng, log)}
     times = {}
     for name, kernel_rows in rows.items():
         launches_per_kind(name, kernel_rows)
@@ -764,18 +972,25 @@ def main(argv=None) -> int:
         for kind, t in times[name].items():
             lib = "none" if t["library_ms"] is None else \
                 f"{t['library_ms']:.4f}"
+            composed = "" if t["composed_ms"] is None else \
+                f"  composed {t['composed_ms']:.4f}"
             log(f"    {kind:11} kernel {t['ms']:.4f}  plain "
-                f"{t['plain_ms']:.4f}  library {lib}  bound "
+                f"{t['plain_ms']:.4f}  library {lib}{composed}  bound "
                 f"{t['bound_ms']:.4f} ({t['bound_by']})")
 
-    # (c) the int8 serving path, (e) the bf16 paths: one setup
+    # (c) the int8 serving path, (e) the bf16 paths, (f) the fused int8
+    # path: one setup
     log("(c) int8 serving path: full width, bucketed 8,12,16,20, B="
         f"{BATCH}, random weights")
     setup = Setup(torch, args, log, cfg)
-    path, _ = run_path(torch, args, kernels, log, setup=setup)
+    path, _, int8_answers = run_path(torch, args, kernels, log, setup=setup)
     log("(e) bf16 serving paths: the same weights and questions")
     bf16_paths = run_bf16_paths(torch, args, kernels, log, setup=setup)
-    paths = {"int8": path, **bf16_paths}
+    log("(f) whole-block fused int8 path (serve(fused=True)): the same "
+        "weights and questions")
+    fused_path = run_fused_path(torch, args, kernels, log, setup=setup,
+                                int8_answers=int8_answers)
+    paths = {"int8": path, **bf16_paths, "int8+fused_block": fused_path}
 
     # (d) the kernels line and the device line: times per serving forward
     # drawn from VQA_LENGTH_MIX; launches summed over the paths' runs
@@ -786,7 +1001,9 @@ def main(argv=None) -> int:
                "fused_ffn": ("xlxmert_tpu_torch/csrc/fused_ffn.cu",
                              "xlxmert_tpu/ops/ffn.py:28"),
                "fused_mha": ("xlxmert_tpu_torch/csrc/fused_mha.cu",
-                             "xlxmert_tpu/ops/attention.py:36")}
+                             "xlxmert_tpu/ops/attention.py:36"),
+               "fused_block": ("xlxmert_tpu_torch/csrc/fused_block.cu",
+                               "xlxmert_tpu/ops/fused_block.py:135")}
     summary = []
     for name, (src, replaces) in sources.items():
         t = times[name]["mix"]
@@ -799,7 +1016,8 @@ def main(argv=None) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             # no single PyTorch call quantizes, multiplies in int8 and
-            # dequantizes: torch._int_mm's product-only times are in --out
+            # dequantizes: torch._int_mm's product-only times are in
+            # --out; fused_block's is its chain with torch._int_mm
             "library_ms": t["library_ms"]})
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

@@ -6,7 +6,9 @@
 --path int8 (the default) builds the full-width int8 engine as
 chip_smoke.py does (random weights from --seed, calibrated through
 cli/serve.serve on a synthetic stream) and times
-cli/serve.serving_forward, the forward serve() runs on every batch; a
+cli/serve.serving_forward, the forward serve() runs on every batch;
+--path int8+fused_block does the same through serve(fused=True) and
+times cli/serve.fused_serving_forward (the whole-block fused engine); a
 bf16 path (a key of chip_smoke.BF16_CONFIGS: bf16, bf16+fused_ffn,
 bf16+pallas+fused_ffn) builds the bf16 VQAModel from the same weights
 with that configuration's attention route and FFN and times
@@ -35,7 +37,8 @@ import chip_smoke  # noqa: E402
 
 
 # the port's kernels, by the name of their __global__ function
-PORT_KERNELS = ("mha_blhd_kernel", "int8_dense_kernel", "fused_ffn_kernel")
+PORT_KERNELS = ("mha_blhd_kernel", "int8_dense_kernel", "fused_ffn_kernel",
+                "fused_block_kernel")
 
 
 def group(name: str) -> str:
@@ -54,7 +57,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--path", default="int8",
-                   choices=["int8"] + list(chip_smoke.BF16_CONFIGS))
+                   choices=["int8", "int8+fused_block"]
+                   + list(chip_smoke.BF16_CONFIGS))
     p.add_argument("--out", default=None, help="default: runs/"
                    "profile_torch_serving_<path>.json")
     args = p.parse_args(argv)
@@ -64,19 +68,21 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from xlxmert_tpu_torch.cli.serve import (
-        bf16_serving_forward, serving_forward,
+        bf16_serving_forward, fused_serving_forward, serving_forward,
     )
     from xlxmert_tpu_torch.core.config import LxmertConfig
     from xlxmert_tpu_torch.models.lxmert import ServingOptions
     from xlxmert_tpu_torch.models.task_heads import vqa_model
-    from xlxmert_tpu_torch.ops import _build, attention, ffn, int8_matmul
+    from xlxmert_tpu_torch.ops import (
+        _build, attention, ffn, fused_block, int8_matmul,
+    )
     from xlxmert_tpu_torch.serving import lxmert_int8 as engine
     from xlxmert_tpu_torch.serving.feature_cache import FeatureCache
 
     if not torch.cuda.is_available():
         chip_smoke.fail("needs a CUDA device")
     kernels = [attention.KERNEL, attention.FUSED_MHA_KERNEL,
-               int8_matmul.KERNEL, ffn.KERNEL]
+               int8_matmul.KERNEL, ffn.KERNEL, fused_block.KERNEL]
     _build.build_all(kernels, verbose=False)
     smoke_args = chip_smoke.parse_args(["--seed", str(args.seed)])
     cfg = LxmertConfig()
@@ -85,14 +91,17 @@ def main(argv=None) -> int:
     table = torch.randn(chip_smoke.IMAGES, V, cfg.visual_feat_dim,
                         generator=gen, device="cuda", dtype=torch.bfloat16)
     cache = FeatureCache(table, {})
-    if args.path == "int8":
+    if args.path in ("int8", "int8+fused_block"):
         # the calibrated full-width engine, built through the serving
-        # entry point (chip_smoke's phase c, which leaves it on the CPU)
-        _, (qp, hqp) = chip_smoke.run_path(torch, smoke_args, kernels,
-                                           lambda m: print(m, flush=True))
-        qp.to("cuda")
-        hqp.to("cuda")
-        run = serving_forward(qp, hqp, cache, cfg, "cuda")
+        # entry point on chip_smoke's weights and questions
+        fused = args.path != "int8"
+        setup = chip_smoke.Setup(torch, smoke_args,
+                                 lambda m: print(m, flush=True), cfg)
+        res, *_ = setup.serve(torch, kernels, fused=fused,
+                              calib_samples=chip_smoke.CALIB_SAMPLES)
+        tree, hqp = res["engine"]
+        run = (fused_serving_forward if fused else serving_forward)(
+            tree, hqp, cache, cfg, "cuda")
     else:
         attn, fused, _ = chip_smoke.BF16_CONFIGS[args.path]
         bert, head = engine.random_params(cfg, 3129, seed=args.seed)

@@ -1,7 +1,7 @@
 """chip_smoke.py on the CPU: its kernel phase checks every shape that its
 serving paths launch a kernel at, as many times per forward as the paths
-do, and its path phases (int8, and bf16 in three configurations) run end
-to end at a small width.
+do, and its path phases (int8, bf16 in three configurations, and the
+whole-block fused int8 engine) run end to end at a small width.
 
 The card itself is not needed: on the CPU the kernel wrappers take their
 plain versions, and the test records the shapes they are called at.
@@ -21,6 +21,7 @@ from xlxmert_tpu_torch.cli import serve as serve_mod  # noqa: E402
 from xlxmert_tpu_torch.core.config import LxmertConfig  # noqa: E402
 from xlxmert_tpu_torch.models import lxmert  # noqa: E402
 from xlxmert_tpu_torch.ops import int8_matmul  # noqa: E402
+from xlxmert_tpu_torch.serving import lxmert_fused  # noqa: E402
 from xlxmert_tpu_torch.serving import lxmert_int8 as engine  # noqa: E402
 
 
@@ -44,6 +45,18 @@ def test_kernel_cases_cover_every_launch_of_each_full_width_forward():
             == per["bf16+pallas+fused_ffn"]["fused_mha"] == 34
         assert sum(c[-1].get(kind, 0) for c in att) == per["bf16"][
             "mha_blhd"] == per["bf16+fused_ffn"]["mha_blhd"] == 34
+    # the fused int8 path: 22 blocks with the FFN and a tail, the last
+    # x-layer's 2 without a tail, the 10 cross-output blocks without FFN
+    blocks = chip_smoke.fused_block_cases(cfg, chip_smoke.BATCH)
+    for kind in chip_smoke.KINDS["fused_block"]:
+        by_variant = Counter()
+        for M, variant, uses in blocks:
+            by_variant[variant] += uses.get(kind, 0)
+        assert by_variant == {"ffn+tail": 22, "ffn": 2, "tail": 10}
+        assert sum(by_variant.values()) \
+            == per["int8+fused_block"]["fused_block"]
+    assert {M for M, _, _ in blocks} == {256 * L for L in chip_smoke.BUCKETS} \
+        | {8 * L for L in chip_smoke.BUCKETS} | {16384, 512}
     on_path = {(b, lq, lk) for b, lq, lk, _, _, _, uses in att if uses}
     assert on_path == {(b, lq, lk) for b, lq, lk, _, _, _, uses in fmha
                        if uses}
@@ -102,11 +115,11 @@ def test_path_phase_launches_exactly_the_kernel_phase_cases(monkeypatch):
     monkeypatch.setattr(int8_matmul, "int8_dense_fused", dense_rec)
     monkeypatch.setattr(serve_mod, "serve", serve_rec)
     args = chip_smoke.parse_args(["--seed", "3"])
-    path, (qp, _) = chip_smoke.run_path(torch, args, [], lambda m: None,
-                                        cfg=cfg, device="cpu")
+    path, (qp, _), answers = chip_smoke.run_path(
+        torch, args, [], lambda m: None, cfg=cfg, device="cpu")
 
     assert all(forwards[k] > 0 for k in chip_smoke.forward_kinds())
-    assert path["answers"] == chip_smoke.QUESTIONS
+    assert path["answers"] == len(answers) == chip_smoke.QUESTIONS
     assert path["forwards"] == sum(forwards.values())
     assert set(path["card_vs_cpu"]) == set(chip_smoke.BUCKETS)
     assert all(c["argmax_equal"] == c["queries"] == chip_smoke.CALIB_BATCH
@@ -223,3 +236,114 @@ def test_bf16_phase_launches_exactly_the_kernel_phase_cases(monkeypatch):
     assert seen["mha_blhd"] == expected(att, {False: 2, True: 1})
     assert seen["fused_mha"] == expected(fmha, {False: 1, True: 1})
     assert seen["fused_ffn"] == expected(ffn, {False: 2, True: 2})
+
+
+def test_fused_phase_launches_exactly_the_kernel_phase_cases(monkeypatch):
+    """Phase (f) on the CPU at a small width: serve(fused=True) answers
+    every question; its calibration forwards call the int8 engine's
+    wrappers only (mha_blhd and the dynamic int8 dense), its serving
+    forwards and the batch-8 card-vs-CPU forwards (run twice: "card" and
+    CPU) call fused_block at exactly the kernel phase's (M, variant)
+    cases, mha_blhd at the attention cases and the static int8 dense 5
+    times each."""
+    cfg = LxmertConfig(vocab_size=4100, hidden_size=32,
+                       num_attention_heads=2, intermediate_size=48,
+                       l_layers=2, x_layers=2, r_layers=1,
+                       visual_feat_dim=16)
+    calls = Counter()     # (wrapper, shape, inside serve)
+    serving = [False]
+
+    def recorder(module, name, shape, label=None):
+        orig = getattr(module, name)
+
+        def call(*a, **kw):
+            calls[label or name, shape(*a, **kw), serving[0]] += 1
+            return orig(*a, **kw)
+        monkeypatch.setattr(module, name, call)
+
+    def block_shape(ctx, *a, tail_w=None, has_ffn=True):
+        variant = ("ffn+tail" if tail_w is not None else "ffn") if has_ffn \
+            else "tail"
+        return ctx.numel() // ctx.shape[-1], variant
+
+    def attention_shape(q, k, v, bias, *a, **kw):
+        return q.shape[0], q.shape[1], k.shape[1], bias is not None
+
+    recorder(lxmert_fused, "fused_block", block_shape)
+    recorder(lxmert_fused, "mha_blhd", attention_shape)
+    # the int8 engine's attention runs in the calibration forwards only
+    recorder(engine, "mha_blhd", attention_shape, "calibration mha_blhd")
+    recorder(int8_matmul, "int8_dense_fused",
+             lambda x, w, s, b=None, inv_a=None: (
+                 x.numel() // x.shape[-1], x.shape[-1], w.shape[0],
+                 inv_a is not None))
+    serve = serve_mod.serve
+
+    def serve_rec(*a, **kw):
+        serving[0] = True
+        try:
+            return serve(*a, **kw)
+        finally:
+            serving[0] = False
+
+    monkeypatch.setattr(serve_mod, "serve", serve_rec)
+    args = chip_smoke.parse_args(["--seed", "5"])
+    setup = chip_smoke.Setup(torch, args, lambda m: None, cfg, "cpu")
+    _, _, int8_answers = chip_smoke.run_path(torch, args, [], lambda m: None,
+                                             setup=setup, device="cpu")
+    calls.clear()
+    path = chip_smoke.run_fused_path(torch, args, [], lambda m: None,
+                                     setup=setup, device="cpu",
+                                     int8_answers=int8_answers)
+    ids = setup.tokenizer.encode_batch([q["sent"] for q in setup.questions],
+                                       max(chip_smoke.BUCKETS))
+    n_tok, low, forwards = (ids > 0).sum(axis=1), 0, Counter()
+    for L in chip_smoke.BUCKETS:
+        n = int(((n_tok > low) & (n_tok <= L)).sum())
+        forwards[f"L={L}"] = math.ceil(n / chip_smoke.BATCH)
+        forwards[f"check L={L}"] = 2     # the "card" and the CPU copy
+        low = L
+    n_calib = math.ceil(chip_smoke.CALIB_SAMPLES / chip_smoke.CALIB_BATCH)
+    assert path["answers"] == chip_smoke.QUESTIONS
+    assert path["calib_forwards"] == n_calib
+    assert path["serve_forwards"] == sum(forwards[f"L={L}"]
+                                         for L in chip_smoke.BUCKETS)
+    assert set(path["card_vs_cpu"]) == set(chip_smoke.BUCKETS)
+    assert all(c["argmax_equal"] == c["queries"] and c["cosine"] > 0.99
+               for c in path["card_vs_cpu"].values())
+    # bit-equal engines on the CPU: the fused path answers as the int8 one
+    assert path["answers_equal_to_int8"] == chip_smoke.QUESTIONS
+
+    def expected(cases):
+        out = Counter()
+        for *shape, uses in cases:
+            for kind, n in uses.items():
+                out[tuple(shape), not kind.startswith("check")] += \
+                    n * forwards[kind]
+        return out
+
+    def seen(name, keep=lambda shape: True):
+        return Counter({(shape, inside): n
+                        for (k, shape, inside), n in calls.items()
+                        if k == name and keep(shape)})
+
+    assert seen("fused_block") == expected(
+        chip_smoke.fused_block_cases(cfg, chip_smoke.BATCH))
+    att = [(b, lq, lk, bias, {k: n for k, n in uses.items() if k != "calib"})
+           for b, lq, lk, bias, _, _, uses
+           in chip_smoke.attention_cases(cfg, chip_smoke.BATCH)]
+    assert seen("mha_blhd") == expected(att)
+    n_fwd = path["serve_forwards"] + 2 * len(chip_smoke.BUCKETS)
+    static = seen("int8_dense_fused", lambda shape: shape[-1])
+    assert sum(static.values()) == 5 * n_fwd
+    # calibration: the int8 engine's forwards, inside serve, with the
+    # dynamic int8 dense and the calibration batch's attention shapes
+    dynamic = seen("int8_dense_fused", lambda shape: not shape[-1])
+    assert all(inside for _, inside in dynamic)
+    assert sum(dynamic.values()) == n_calib * (
+        4 * cfg.l_layers + 4 * cfg.r_layers + 14 * cfg.x_layers + 3)
+    assert seen("calibration mha_blhd") == Counter({
+        ((b, lq, lk, bias), True): uses["calib"] * n_calib
+        for b, lq, lk, bias, _, _, uses
+        in chip_smoke.attention_cases(cfg, chip_smoke.BATCH)
+        if "calib" in uses})

@@ -11,8 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from xlxmert_tpu_torch.ops import attention, ffn, int8_matmul
-from xlxmert_tpu_torch.ops.quant import quantize_weight
+from xlxmert_tpu_torch.ops import attention, fused_block, ffn, int8_matmul
+from xlxmert_tpu_torch.ops.quant import quantize_weight, with_activation_scale
 
 pytestmark = pytest.mark.gpu
 
@@ -186,3 +186,74 @@ def test_fused_ffn_kernel_rejects_what_it_cannot_take(cuda):
         ffn.fused_ffn(x, w1, vecs[0], w2, *vecs[1:])
     with pytest.raises(ValueError, match="bf16 rows"):
         ffn.fused_ffn(x.float(), w1, vecs[0], w2, *vecs[1:])
+
+
+def _fused_weight(rng, k, n, amax, dev):
+    qw = quantize_weight(rng.randn(k, n).astype(np.float32) * 0.03,
+                         rng.randn(n).astype(np.float32) * 0.05)
+    return fused_block.fused_weight(with_activation_scale(qw, amax)).to(dev)
+
+
+def _block_operands(rng, dev, M, I=3072, Nq=2304):
+    H = 768
+
+    def vec(scale, shift=0.0):
+        return torch.from_numpy(
+            (rng.randn(H) * scale + shift).astype(np.float32)).to(dev)
+
+    ctx, x = (torch.from_numpy(rng.randn(M, H).astype(np.float32)).to(
+        dev, torch.bfloat16) for _ in range(2))
+    weights = {"out_w": _fused_weight(rng, H, H, 4.0, dev),
+               "w1": _fused_weight(rng, H, I, 4.5, dev),
+               "w2": _fused_weight(rng, I, H, 2.5, dev),
+               "tail_w": _fused_weight(rng, H, Nq, 4.5, dev)}
+    lns = [vec(0.1, 1.0), vec(0.05), vec(0.1, 1.0), vec(0.05)]
+    return ctx, x, weights, lns
+
+
+@pytest.mark.parametrize("M", [2048, 16384, 160, 50, 15, 1])
+@pytest.mark.parametrize("ffn_on,tail_on", [(True, True), (True, False),
+                                            (False, True), (False, False)])
+def test_fused_block_kernel_matches_plain(cuda, M, ffn_on, tail_on):
+    """Exact int32 products; the LayerNorm sums in another order can move
+    a bf16 y1 by one step, and so one int8 step downstream."""
+    rng = np.random.RandomState(M + 2 * ffn_on + tail_on)
+    ctx, x, w, (g1, b1, g2, b2) = _block_operands(rng, cuda, M)
+    ffn_w = (w["w1"], w["w2"], g2, b2) if ffn_on else (None,) * 4
+    tail_w = w["tail_w"] if tail_on else None
+    before = fused_block.KERNEL.launches
+    out = fused_block.fused_block(ctx, x, w["out_w"], g1, b1, *ffn_w,
+                                  tail_w=tail_w, has_ffn=ffn_on)
+    torch.cuda.synchronize()
+    assert fused_block.KERNEL.launches == before + 1
+    ref = fused_block.fused_block_reference(
+        ctx, x, w["out_w"], fused_block.LN(g1, b1),
+        *((w["w1"], w["w2"], fused_block.LN(g2, b2)) if ffn_on
+          else (None,) * 3), tail_w)
+    outs, refs = ((out, ref) if tail_on else ((out,), (ref,)))
+    assert len(outs) == len(refs) == 1 + tail_on
+    for o, r in zip(outs, refs):
+        assert o.shape == r.shape and o.dtype == torch.bfloat16
+        o, r = o.float(), r.float()
+        err = (o - r).abs().max().item()
+        assert err <= 2.0 ** -6 * r.abs().max().item(), err
+        cos = (o * r).sum() / (o.norm() * r.norm())
+        assert cos.item() > 0.9999, cos.item()
+
+
+def test_fused_block_kernel_rejects_what_it_cannot_take(cuda):
+    rng = np.random.RandomState(0)
+    ctx, x, w, (g1, b1, g2, b2) = _block_operands(rng, cuda, 8, I=192)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        fused_block.fused_block(ctx, x, w["out_w"], g1, b1, w["w1"],
+                                w["w2"], g2, b2)
+    with pytest.raises(ValueError, match="bf16 rows"):
+        fused_block.fused_block(ctx.float(), x.float(), w["out_w"], g1, b1,
+                                has_ffn=False)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_block.fused_block(ctx.t().contiguous().t(), x, w["out_w"], g1,
+                                b1, has_ffn=False)
+    small = torch.zeros(8, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="768"):
+        fused_block.fused_block(small, small, w["out_w"], g1, b1,
+                                has_ffn=False)

@@ -92,8 +92,10 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(no_cuda,
 
 
 def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
-    from xlxmert_tpu_torch.ops import attention, int8_matmul
-    from xlxmert_tpu_torch.ops.quant import quantize_weight
+    from xlxmert_tpu_torch.ops import attention, fused_block, int8_matmul
+    from xlxmert_tpu_torch.ops.quant import (
+        quantize_weight, with_activation_scale,
+    )
 
     q = torch.randn(2, 5, 32)
     before = attention.KERNEL.launches
@@ -106,3 +108,14 @@ def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
     with pytest.raises(ValueError, match="unsupported device"):
         attention.mha_blhd(q.to("meta"), q.to("meta"), q.to("meta"), None,
                            2)
+    fw = fused_block.fused_weight(with_activation_scale(
+        quantize_weight(np.ones((32, 32), np.float32)), 1.0))
+    x, g, b = q[0].to(torch.bfloat16), torch.ones(32), torch.zeros(32)
+    before = fused_block.KERNEL.launches
+    y = fused_block.fused_block(x, x, fw, g, b, has_ffn=False)
+    assert torch.equal(y, fused_block.fused_block_reference(
+        x, x, fw, fused_block.LN(g, b)))
+    assert fused_block.KERNEL.launches == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_block.fused_block(x.to("meta"), x.to("meta"), fw, g, b,
+                                has_ffn=False)

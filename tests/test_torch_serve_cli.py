@@ -116,6 +116,43 @@ def test_bf16_flag_is_not_ported_yet(served):
     assert agree >= 8, f"{agree}/10 agree"
 
 
+def test_serve_fused_gives_the_int8_answers(served):
+    """serve(fused=True) runs the whole-block fused engine on the
+    calibrated int8 engine; on the CPU the two are bit-equal, so they
+    answer alike. It does not combine with bf16=True."""
+    from xlxmert_tpu_torch.cli.serve import serve
+    from xlxmert_tpu_torch.data.io import GridFeatureReader
+    from xlxmert_tpu_torch.serving.feature_cache import FeatureCache
+
+    _, tmp, _, _ = served
+    cfg = LxmertConfig.from_yaml(str(tmp / "model.yaml"))
+    params = load_any_checkpoint(str(tmp / "BEST.msgpack"))
+    with open(tmp / "qs.jsonl") as f:
+        qs = [json.loads(line) for line in f if line.strip()]
+    with GridFeatureReader(str(tmp / "grid2.h5")) as reader:
+        cache = FeatureCache.build(reader, [f"img_{i}" for i in range(6)],
+                                   device="cpu")
+    answers, calibrated = {}, []
+    for fused in (False, True):
+        out = tmp / f"fused_{fused}.jsonl"
+        res = serve(qs, Tokenizer(str(tmp / "vocab.txt")), cache, params,
+                    cfg, ANSWERS, str(out), batch=4, buckets="8,12",
+                    device="cpu", fused=fused,
+                    on_calibrated=lambda: calibrated.append(fused))
+        with open(out) as f:
+            answers[fused] = {a["question_id"]: a["answer"]
+                              for a in map(json.loads, f)}
+        assert res["calib_forwards"] + res["serve_forwards"] \
+            == res["forwards"]
+    assert type(res["engine"][0]).__name__ == "LxmertFused"
+    assert calibrated == [False, True]
+    assert sorted(answers[True]) == list(range(10))
+    assert answers[True] == answers[False]
+    with pytest.raises(ValueError, match="bf16"):
+        serve(qs, None, cache, params, cfg, ANSWERS, str(tmp / "x.jsonl"),
+              device="cpu", fused=True, bf16=True)
+
+
 def test_msgpack_checkpoint_reads_like_flax(served):
     _, tmp, _, params = served
     got = load_any_checkpoint(str(tmp / "BEST.msgpack"))

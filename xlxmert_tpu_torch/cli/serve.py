@@ -5,7 +5,10 @@
     image index;
   - the forward runs through the static-calibrated int8 engine
     (serving/lxmert_int8.py), whose denses and attention are the port's
-    CUDA kernels, or with --bf16 through the bf16 VQAModel
+    CUDA kernels, through the same engine with each encoder module's
+    dense chain in the whole-block fused kernel (`serve(fused=True)`,
+    serving/lxmert_fused.py; no flag, as in the reference), or with
+    --bf16 through the bf16 VQAModel
     (models/task_heads.py) in serving mode, with every float parameter
     cast to bf16 and the packed-head attention kernel on the card;
   - answers stream to a jsonl, with throughput printed at the end.
@@ -20,8 +23,9 @@ Usage:
 
 questions.jsonl lines: {"question_id": ..., "img_id": ..., "sent": ...}.
 `serve()` is the serving loop itself, callable with in-memory inputs;
-`serving_forward()` (int8) and `bf16_serving_forward()` are the forwards
-it runs on every batch.
+`serving_forward()` (int8), `fused_serving_forward()` (int8, fused
+blocks) and `bf16_serving_forward()` are the forwards it runs on every
+batch.
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ import argparse
 import json
 import time
 from collections import deque
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 
 def parse_args(argv=None):
@@ -69,6 +73,21 @@ def serving_forward(qp, hqp, cache, cfg, device):
     """The forward `serve` runs on every batch: host tensors of token ids
     (B, L), catalog rows (B,) and the attention mask (B, L) in, each
     query's answer index out, left on `device` (not synchronized)."""
+    from xlxmert_tpu_torch.serving import lxmert_int8 as engine
+
+    return _int8_forward(engine.lxmert_forward, qp, hqp, cache, cfg, device)
+
+
+def fused_serving_forward(fp, hqp, cache, cfg, device):
+    """The forward `serve(fused=True)` runs on every batch, as
+    `serving_forward`: `fp` is serving/lxmert_fused.prepare_fused's tree
+    of the calibrated engine."""
+    from xlxmert_tpu_torch.serving.lxmert_fused import lxmert_forward_fused
+
+    return _int8_forward(lxmert_forward_fused, fp, hqp, cache, cfg, device)
+
+
+def _int8_forward(forward, tree, hqp, cache, cfg, device):
     import numpy as np
     import torch
 
@@ -85,8 +104,8 @@ def serving_forward(qp, hqp, cache, cfg, device):
         ids, picks, mask = (t.to(device, non_blocking=True)
                             for t in (ids, picks, mask))
         feats = FeatureCache.lookup(cache.table, picks)
-        _, _, pooled = engine.lxmert_forward(
-            qp, ids, feats, pos[None].expand(ids.shape[0], V, 4),
+        _, _, pooled = forward(
+            tree, ids, feats, pos[None].expand(ids.shape[0], V, 4),
             attention_mask=mask, n_heads=cfg.num_attention_heads)
         return engine.answer_head_forward(hqp, pooled).argmax(-1)
 
@@ -124,18 +143,25 @@ def serve(questions: List[Dict], tokenizer, cache, params: Dict, cfg,
           label2ans: Sequence[str], output: str, *, batch: int = 256,
           max_text_length: int = 20, buckets: str = "", window: int = 32,
           calib_samples: int = 256, device="cuda", bf16: bool = False,
-          attention: str = "auto", fused_ffn: bool = False) -> Dict:
+          attention: str = "auto", fused_ffn: bool = False,
+          fused: bool = False,
+          on_calibrated: Optional[Callable[[], None]] = None) -> Dict:
     """Calibrate the int8 engine on queries sampled across `questions`,
-    then answer every question into `output` (jsonl). With bf16=True,
-    serve the bf16 VQAModel instead, uncalibrated, in serving mode with
-    `attention` ("auto": the packed-head kernel on the card; "einsum",
-    "blhd" or "pallas") and `fused_ffn` (models/lxmert.ServingOptions).
+    then answer every question into `output` (jsonl); with fused=True
+    through the whole-block fused engine built from the calibrated one
+    (serving/lxmert_fused.py). `on_calibrated`, if given, is called once
+    the engine is calibrated, before the first serving forward
+    (chip_smoke.py reads the kernels' launch counts there). With
+    bf16=True, serve the bf16 VQAModel instead, uncalibrated, in serving
+    mode with `attention` ("auto": the packed-head kernel on the card;
+    "einsum", "blhd" or "pallas") and `fused_ffn`
+    (models/lxmert.ServingOptions).
 
     cache: a FeatureCache on `device` holding every referenced image;
     params: the flax-layout tree with "bert" and "answer_head" (numpy).
     Returns counts and rates: answers, forwards (calibration + serving),
     steady_qps, total_qps, and the engine: the calibrated (qp, head_qp),
-    or the bf16 VQAModel."""
+    with fused=True (the fused tree, head_qp), or the bf16 VQAModel."""
     import numpy as np
     import torch
 
@@ -145,6 +171,9 @@ def serve(questions: List[Dict], tokenizer, cache, params: Dict, cfg,
     from xlxmert_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
+    if fused and bf16:
+        raise ValueError("serve: fused=True runs the int8 engine; it "
+                         "cannot be combined with bf16=True")
     if not questions:
         open(output, "w").close()
         print("served 0 answers")
@@ -240,8 +269,17 @@ def serve(questions: List[Dict], tokenizer, cache, params: Dict, cfg,
         engine.assert_fully_calibrated(qp, hqp)
         n_calib_batches = len(calib_batches)
         del calib_batches
-        run = serving_forward(qp, hqp, cache, cfg, dev)
-        path = "int8_static"
+        if on_calibrated is not None:
+            on_calibrated()
+        if fused:
+            from xlxmert_tpu_torch.serving.lxmert_fused import prepare_fused
+
+            qp = prepare_fused(qp, cfg)
+            run = fused_serving_forward(qp, hqp, cache, cfg, dev)
+            path = "int8_fused"
+        else:
+            run = serving_forward(qp, hqp, cache, cfg, dev)
+            path = "int8_static"
     n = 0
     pending: deque = deque()
     t_begin = time.time()

@@ -24,7 +24,9 @@ amax of its input during a calibration forward (the dynamic int8 path);
 `apply_calibration` then gives each its static scale in place. This
 replaces the reference's id()-keyed two-pass trace.
 
-Not yet ported: `nlvr2_forward` and the int8 attention einsums.
+The whole-block fused engine (serving/lxmert_fused.py) runs on the
+calibrated tree this module builds. Not yet ported: `nlvr2_forward`
+(with fine-tuning) and the int8 attention einsums (with sampling).
 """
 from __future__ import annotations
 
@@ -325,15 +327,32 @@ def _extend_mask(mask):
         torch.bfloat16)
 
 
+def text_embeddings(emb: Embeddings, input_ids) -> torch.Tensor:
+    """Word + position + token-type-0 embeddings (bf16), LayerNorm."""
+    L = input_ids.shape[1]
+    h = (F.embedding(input_ids, emb.word) + emb.pos[None, :L]
+         + emb.token_type[0][None, None, :])
+    return emb.ln(h)
+
+
+def visual_embeddings(vf: VisualFeatEncoder, visual_feats,
+                      visual_pos) -> torch.Tensor:
+    """(LN(int8 visn_fc(feats)) + LN(box_fc(pos))) * 0.5, bf16."""
+    x = vf.feat_ln(vf.feat(visual_feats.to(torch.bfloat16)))
+    y = visual_pos.to(torch.bfloat16) @ vf.box_kernel + vf.box_bias
+    return (x + vf.box_ln(y)) * 0.5
+
+
+def pool(pooler: Pooler, lang) -> torch.Tensor:
+    """tanh(dense(first token)), bf16."""
+    return torch.tanh(lang[:, 0] @ pooler.kernel + pooler.bias)
+
+
 def lang_encode(qp: LxmertInt8, input_ids, attention_mask=None,
                 n_heads: int = 12):
     """Embeddings + the language self-attention stack."""
     lang_bias = _extend_mask(attention_mask)
-    emb = qp.embeddings
-    L = input_ids.shape[1]
-    h = (F.embedding(input_ids, emb.word) + emb.pos[None, :L]
-         + emb.token_type[0][None, None, :])
-    lang = emb.ln(h)
+    lang = text_embeddings(qp.embeddings, input_ids)
     for layer in qp.lang_layers:
         lang = layer(lang, lang_bias, n_heads)
     return lang, lang_bias
@@ -343,10 +362,7 @@ def visn_encode(qp: LxmertInt8, visual_feats, visual_pos,
                 visual_attention_mask=None, n_heads: int = 12):
     """Visual feature encoder + the visual self-attention stack."""
     visn_bias = _extend_mask(visual_attention_mask)
-    vf = qp.visn_fc
-    x = vf.feat_ln(vf.feat(visual_feats.to(torch.bfloat16)))
-    y = visual_pos.to(torch.bfloat16) @ vf.box_kernel + vf.box_bias
-    visn = (x + vf.box_ln(y)) * 0.5
+    visn = visual_embeddings(qp.visn_fc, visual_feats, visual_pos)
     for layer in qp.visn_layers:
         visn = layer(visn, visn_bias, n_heads)
     return visn, visn_bias
@@ -363,8 +379,7 @@ def cross_encode(qp: LxmertInt8, lang, visn, lang_bias, visn_bias,
         new_visn = p.cross(visn, lang_kv, lang_bias, n_heads)
         lang = p.lang_ffn(p.lang_self(new_lang, lang_bias, n_heads))
         visn = p.visn_ffn(p.visn_self(new_visn, visn_bias, n_heads))
-    pooled = torch.tanh(lang[:, 0] @ qp.pooler.kernel + qp.pooler.bias)
-    return lang, visn, pooled
+    return lang, visn, pool(qp.pooler, lang)
 
 
 def lxmert_forward(qp: LxmertInt8, input_ids, visual_feats, visual_pos,
