@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed 0] [--out runs/chip_smoke.json]
 
 Phases, each of which fails the script on error:
-  (a) device and build: the card's name, count and power limit; the five
+  (a) device and build: the card's name, count and power limit; the six
       CUDA kernels built from csrc/ in parallel (nvcc, -Xptxas -v);
   (b) kernels: each kernel against its plain PyTorch version on the card
       at every shape the paths give it (serving at B=256 for each bucket
@@ -17,7 +17,14 @@ Phases, each of which fails the script on error:
       VQA_LENGTH_MIX. fused_block also gets a composed time: the same
       chain through the int8 engine (int8 dense kernel + eager glue), the
       launches it replaces; its library time is that chain with
-      torch._int_mm for the products;
+      torch._int_mm for the products. mha_blhd_train is held to its
+      plain version at the four attention shapes of a fine-tuning step
+      (text FT_TEXT, visual 64, both cross directions) at the VQA batch,
+      NLVR2's (two image rows per example) and the card-vs-CPU step's,
+      bf16 and fp32, with and without the dropout mask; its library time
+      is SDPA with dropout_p at the same rate (SDPA draws its own mask),
+      and beside it the plain-PyTorch time of the backward's einsum
+      recompute; its times are summed per training step;
   (c) the serving path at full width (LxmertConfig(): 9/5/5 layers, 768
       hidden, 2048-d grid features, 3,129 answers) with random weights
       from --seed: a 512-image bf16 catalog in device memory, 2,048
@@ -45,8 +52,25 @@ Phases, each of which fails the script on error:
       + 34 mha_blhd + 5 int8_dense; the same fused engine on the CPU is
       held to the card as in (c), and its answers are counted against
       (c)'s;
+  (g) fine-tuning at full width (LxmertConfig(), 3,129 answers, random
+      weights from --seed, B=FT_BATCH, text FT_TEXT, an 8x8 grid, bf16
+      mixed precision): cli/finetune.finetune() over an in-memory
+      VQADataset of synthetic questions with soft targets on the
+      catalog's images, FT_STEPS steps and an evaluation through the
+      exact model, once with train_attention "pallas_blhd" (34
+      mha_blhd_train launches per step) and once with "xla" (none);
+      every loss finite, the loss on one repeated batch falling over
+      FT_REPEAT steps, an evaluation through the int8 engine
+      (--serve_int8: 34 mha_blhd + 129 int8_dense per forward),
+      LAST.msgpack read back; NLVR2 for 2 steps and one int8 eval batch
+      (NLVR2Model, nlvr2_forward); one dropout-free training step on a
+      batch of FT_CHECK on the card (kernel route) and on the CPU (plain
+      route) from the same weights, in fp32 and bf16, held to
+      STEP_BARS (loss, gradient cosine). Per step: wall ms after the
+      first, examples/s, peak memory and the kernel's share;
   (d) one JSON line listing the kernels (times per serving forward of
-      the length mix), then the device line last.
+      the length mix; mha_blhd_train's per training step), then the
+      device line last.
 
 Per-shape numbers go to --out. Without a CUDA device, or outside the
 repository, the script exits non-zero and prints no result.
@@ -55,6 +79,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -86,6 +111,11 @@ PER_FORWARD = {
     "bf16": {"mha_blhd": 34},
     "bf16+fused_ffn": {"mha_blhd": 34, "fused_ffn": 24},
     "bf16+pallas+fused_ffn": {"fused_mha": 34, "fused_ffn": 24},
+    # (g): per training step of each route, per int8 eval forward
+    "finetune pallas_blhd": {"mha_blhd_train": 34},
+    "finetune xla": {},
+    "finetune eval": {},          # the exact model: einsum attention
+    "finetune serve_int8": {"mha_blhd": 34, "int8_dense": 129},
 }
 # serve(bf16=True, attention=..., fused_ffn=...) of each bf16 path, and
 # the attention route its CPU copy takes (None: no card-vs-CPU check)
@@ -98,6 +128,19 @@ IMAGES = 512          # catalog rows in device memory (134 MB bf16)
 QUESTIONS = 2048
 CALIB_SAMPLES = 256
 REPS = 10             # timed launches per shape, after 2 warm-up launches
+# (g) fine-tuning
+FT_BATCH = 32         # the fine-tuning CLI's default batch
+FT_TEXT = 20          # max_text_length: every batch pads to it
+FT_STEPS = 10         # training steps of each route
+FT_REPEAT = 6         # steps on one repeated batch: its loss must fall
+FT_EVAL = 64          # evaluation questions (2 batches)
+FT_LR = 1e-4
+FT_CHECK = 8          # batch of the card-vs-CPU training step
+FT_PARTS = 3          # steps timed part by part (then one profiled)
+TRAIN_ROUTES = ("pallas_blhd", "xla")
+# card-vs-CPU bars of one dropout-free training step: (largest relative
+# difference of the loss, smallest cosine of the global gradient)
+STEP_BARS = {"float32": (1e-4, 0.9999), "bfloat16": (2e-2, 0.99)}
 
 
 def fail(msg: str) -> None:
@@ -125,6 +168,38 @@ def time_ms(torch, fn) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / REPS
+
+
+def queued_ms(torch, fn):
+    """(ms, queued): the mean device time of fn over REPS launches with
+    the queue kept full: a sleep kernel holds the card while the host
+    enqueues them, so the host's own time per call (Python, autograd,
+    ctypes), which exceeds a small kernel's, does not show as it does in
+    time_ms. The sleep grows until the start event is still pending when
+    the last launch has been enqueued; `queued` is False when it never
+    was (fn waits for the card), and ms is then time_ms's."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(2e9 * 2 * REPS * host_s) + 1_000_000  # ~2 GHz clock
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(REPS):
+            fn()
+        end.record()
+        ahead = not start.query()
+        end.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / REPS, True
+        cycles *= 4
+    return time_ms(torch, fn), False
 
 
 def bound(nbytes: float, ops: float, kind: str) -> dict:
@@ -156,11 +231,19 @@ def check_kinds():
 
 
 # the forward kinds each kernel runs in: every kind of every path
-KINDS = {"mha_blhd": forward_kinds() + check_kinds(),
-         "int8_dense": forward_kinds(),
+# the forwards of (g)'s int8 evaluations: VQA ("ft eval", B=FT_BATCH)
+# and NLVR2 ("ft nlvr2 eval"), calibration forwards apart for the int8
+# dense (dynamic mode)
+FT_EVAL_KINDS = ["ft eval", "ft nlvr2 eval"]
+KINDS = {"mha_blhd": forward_kinds() + check_kinds() + FT_EVAL_KINDS,
+         "int8_dense": forward_kinds() + FT_EVAL_KINDS
+         + [f"{k} calib" for k in FT_EVAL_KINDS],
          "fused_ffn": forward_kinds()[:-1] + check_kinds(),
          "fused_mha": forward_kinds()[:-1] + check_kinds(),
-         "fused_block": forward_kinds()[:-1] + check_kinds()}
+         "fused_block": forward_kinds()[:-1] + check_kinds(),
+         # training steps: VQA, NLVR2 and the card-vs-CPU step per type
+         "mha_blhd_train": ["ft vqa", "ft nlvr2", "ft check float32",
+                            "ft check bfloat16"]}
 
 
 def attention_shapes(cfg, B):
@@ -183,11 +266,36 @@ def attention_shapes(cfg, B):
     return shapes
 
 
+def finetune_eval_attention_shapes(cfg, shapes=None):
+    """attention_shapes' entries for the int8 engine in (g)'s
+    evaluations: VQA at FT_BATCH rows, and NLVR2, whose sentence runs
+    the language layers once on FT_BATCH rows and everything after on
+    two rows per example (nlvr2_forward)."""
+    vis, text = 64, FT_TEXT
+    nl, nr, nx = cfg.l_layers, cfg.r_layers, cfg.x_layers
+    shapes = {} if shapes is None else shapes
+    b2 = 2 * FT_BATCH
+    for kind, b, lq, lk, bias, n in (
+            ("ft eval", FT_BATCH, text, text, True, nl + nx),
+            ("ft eval", FT_BATCH, vis, vis, False, nr + nx),
+            ("ft eval", FT_BATCH, text, vis, False, nx),
+            ("ft eval", FT_BATCH, vis, text, True, nx),
+            ("ft nlvr2 eval", FT_BATCH, text, text, True, nl),
+            ("ft nlvr2 eval", b2, text, text, True, nx),
+            ("ft nlvr2 eval", b2, vis, vis, False, nr + nx),
+            ("ft nlvr2 eval", b2, text, vis, False, nx),
+            ("ft nlvr2 eval", b2, vis, text, True, nx)):
+        shapes.setdefault((b, lq, lk), (bias, {}))[1][kind] = n
+    return shapes
+
+
 def attention_cases(cfg, B):
     """(batch, Lq, Lk, with_bias, dtype, fast, uses) of mha_blhd: every
-    shape with and without bias, in bf16 (fast) and fp32; `uses` is
-    empty but where the case is the path's."""
-    for (b, lq, lk), (path_bias, uses) in attention_shapes(cfg, B).items():
+    shape of the serving paths and of (g)'s int8 evaluations, with and
+    without bias, in bf16 (fast) and fp32; `uses` is empty but where the
+    case is the path's."""
+    shapes = finetune_eval_attention_shapes(cfg, attention_shapes(cfg, B))
+    for (b, lq, lk), (path_bias, uses) in shapes.items():
         for bias in (True, False):
             for dtype, fast in (("bfloat16", True), ("float32", False)):
                 on = fast and bias == path_bias
@@ -279,6 +387,106 @@ def check_attention(torch, F, attention, cfg, rng, log, name="mha_blhd"):
             f"{dt:8} err {err:.2e} (tol {MHA_TOL[dt]:g})  kernel "
             f"{kernel:.4f} ms  plain {plain:.4f}  sdpa {library:.4f}  "
             f"bound {row['bound_ms']:.4f} ({row['bound_by']})")
+    return rows
+
+
+def train_attention_cases(cfg):
+    """(batch, Lq, Lk, with_bias, dtype, with_mask, uses) of
+    mha_blhd_train: the four attention shapes of a training forward
+    (text keys carry the padding bias) at the VQA batch, at NLVR2's (the
+    sentence repeated per image: two rows per example) and at the
+    card-vs-CPU step's, in bf16 and fp32, with and without the dropout
+    mask. `uses` is empty but where the case is the path's: the bf16
+    steps with dropout ("ft vqa", "ft nlvr2") and the dropout-free check
+    step in each type."""
+    vis, text = 64, FT_TEXT
+    nl, nr, nx = cfg.l_layers, cfg.r_layers, cfg.x_layers
+    for kind, b in (("ft vqa", FT_BATCH), ("ft nlvr2", 2 * FT_BATCH),
+                    ("ft check", FT_CHECK)):
+        for lq, lk, bias, n in ((text, text, True, nl + nx),
+                                (vis, vis, False, nr + nx),
+                                (text, vis, False, nx),
+                                (vis, text, True, nx)):
+            for dt in ("bfloat16", "float32"):
+                for mask in (True, False):
+                    if kind == "ft check":
+                        uses = {} if mask else {f"ft check {dt}": n}
+                    else:
+                        uses = {kind: n} if mask and dt == "bfloat16" else {}
+                    yield b, lq, lk, bias, dt, mask, uses
+
+
+def check_train_attention(torch, F, attention, cfg, rng, log):
+    """mha_blhd_train against mha_blhd_train_reference on column slices
+    of fused projections with a (B, Lk) bias and a pre-scaled dropout
+    mask drawn at the model's rate; SDPA with dropout_p at that rate as
+    the library call (it draws its own mask); and the plain-PyTorch time
+    of the backward (blhd_einsum_reference recomputed, then its
+    gradients for q, k and v)."""
+    H, HD = cfg.num_attention_heads, cfg.hidden_size
+    D = HD // H
+    rate = cfg.attention_probs_dropout_prob
+    rows = []
+    for B, lq, lk, with_bias, dt, with_mask, uses in \
+            train_attention_cases(cfg):
+        dtype = getattr(torch, dt)
+        q, k, v, bias = _qkv_bias(torch, rng, B, lq, lk, HD, dtype,
+                                  with_bias)
+        mask = None
+        if with_mask:
+            keep = torch.rand(B, H, lq, lk, generator=rng,
+                              device="cuda") >= rate
+            mask = keep.to(dtype) / torch.tensor(1.0 - rate, dtype=dtype,
+                                                 device="cuda")
+        args = (q, k, v, bias, mask, H)
+        out = attention.mha_blhd_train(*args)
+        ref = attention.mha_blhd_train_reference(*args)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        if not (err <= MHA_TOL[dt]) or not torch.isfinite(out).all():
+            fail(f"mha_blhd_train B={B} {lq}x{lk} mask={with_mask} {dt}: "
+                 f"max abs err {err} > {MHA_TOL[dt]}")
+        heads = [t.view(B, -1, H, D).transpose(1, 2) for t in (q, k, v)]
+        amask = None if bias is None else bias[:, None, None].to(dtype)
+        grad = torch.randn(B, lq, HD, generator=rng, device="cuda").to(dtype)
+
+        def recompute():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            o = attention.blhd_einsum_reference(*leaves, bias, mask, H)
+            return torch.autograd.grad(o, leaves, grad)
+
+        # at these batches a launch takes the host longer than the card
+        # (the back-to-back time, kept as enqueue_ms): time the card
+        enqueue = time_ms(torch, lambda: attention.mha_blhd_train(*args))
+        timed = {
+            "ms": queued_ms(torch, lambda: attention.mha_blhd_train(*args)),
+            "plain_ms": queued_ms(
+                torch, lambda: attention.mha_blhd_train_reference(*args)),
+            "library_ms": queued_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    *heads, attn_mask=amask,
+                    dropout_p=rate if with_mask else 0.0)),
+            "recompute_ms": queued_ms(torch, recompute)}
+        kernel, plain, library, back = (t for t, _ in timed.values())
+        nbytes = (B * (2 * lq + 2 * lk) * HD * q.element_size()
+                  + (0 if mask is None else mask.numel() * q.element_size())
+                  + (0 if bias is None else bias.numel() * 2))
+        row = {"B": B, "Lq": lq, "Lk": lk, "bias": with_bias, "dtype": dt,
+               "mask": with_mask, "max_abs_err": err, "tol": MHA_TOL[dt],
+               "ms": kernel, "enqueue_ms": enqueue, "plain_ms": plain,
+               "library_ms": library, "recompute_ms": back,
+               "not_queued": [k for k, (_, ok) in timed.items() if not ok],
+               "uses": uses,
+               **bound(nbytes, 4.0 * B * H * lq * lk * D, dt)}
+        rows.append(row)
+        log(f"  mha_blhd_train B={B:2d} {lq:2d}x{lk:2d} mask={with_mask!s:5} "
+            f"{dt:8} err {err:.2e} (tol {MHA_TOL[dt]:g})  kernel "
+            f"{kernel:.4f} ms (back to back {enqueue:.4f})  plain "
+            f"{plain:.4f}  sdpa(dropout) "
+            f"{library:.4f}  recompute {back:.4f}  bound "
+            f"{row['bound_ms']:.4f} ({row['bound_by']})"
+            + (f"  (not queued, waits for the card: "
+               f"{', '.join(row['not_queued'])})" if row["not_queued"] else ""))
     return rows
 
 
@@ -460,6 +668,24 @@ def dense_cases(cfg, B, n_answers):
         for group, M in ((text, b * L), (vis, b * 64), (head, b)):
             for (K, N), n in group.items():
                 shapes.setdefault((M, K, N, static), {})[kind] = n
+    # (g)'s int8 evaluations, serving and calibration forwards: VQA, and
+    # NLVR2 (language layers on FT_BATCH rows, the cross layers' text and
+    # the visual rows on two rows per example, the head on the pooled
+    # pair's 2 x hidden)
+    b, b2, T = FT_BATCH, 2 * FT_BATCH, FT_TEXT
+    lang = {(Hd, 3 * Hd): nl, (Hd, Hd): nl, (Hd, I): nl, (I, Hd): nl}
+    cross = {(Hd, 3 * Hd): nx, (Hd, Hd): 3 * nx, (Hd, I): nx, (I, Hd): nx,
+             (Hd, 2 * Hd): nx}
+    for static, suffix in ((True, ""), (False, " calib")):
+        for kind, group, M in (
+                ("ft eval", text, b * T), ("ft eval", vis, b * 64),
+                ("ft eval", head, b), ("ft nlvr2 eval", lang, b * T),
+                ("ft nlvr2 eval", cross, b2 * T),
+                ("ft nlvr2 eval", vis, b2 * 64),
+                ("ft nlvr2 eval", {(2 * Hd, 2 * Hd): 1, (2 * Hd, 2): 1}, b)):
+            for (K, N), n in group.items():
+                uses = shapes.setdefault((M, K, N, static), {})
+                uses[kind + suffix] = uses.get(kind + suffix, 0) + n
     for (M, K, N, static), uses in shapes.items():
         yield M, K, N, static, uses
 
@@ -523,16 +749,19 @@ def per_forward(rows, mix, kinds):
     """A kernel's times summed over its launches in one forward of each
     kind, and over a serving forward drawn from `mix` (the share of
     questions, hence of full batches, at each bucket length)."""
-    keys = ("ms", "plain_ms", "library_ms", "composed_ms", "bound_ms",
-            "bytes_ms", "ops_ms")
+    keys = ("ms", "enqueue_ms", "plain_ms", "library_ms", "composed_ms",
+            "recompute_ms", "bound_ms", "bytes_ms", "ops_ms")
     out = {}
     for kind in kinds:
         used = [(r, r["uses"][kind]) for r in rows if kind in r["uses"]]
         out[kind] = {k: (None if any(r.get(k) is None for r, _ in used)
                          else sum(r[k] * n for r, n in used)) for k in keys}
-    out["mix"] = {k: (None if any(out[f"L={L}"][k] is None for L in BUCKETS)
-                      else sum(mix[L] * out[f"L={L}"][k] for L in BUCKETS))
-                  for k in keys}
+    if all(f"L={L}" in out for L in BUCKETS):
+        out["mix"] = {k: (None if any(out[f"L={L}"][k] is None
+                                      for L in BUCKETS)
+                          else sum(mix[L] * out[f"L={L}"][k]
+                                   for L in BUCKETS))
+                      for k in keys}
     for t in out.values():
         t["bound_by"] = ("bytes" if t["bytes_ms"] >= t["ops_ms"]
                          else "operations")
@@ -911,6 +1140,382 @@ def run_fused_path(torch, args, kernels, log, cfg=None, device="cuda",
     return out
 
 
+# ---------------------------------------------------------------------------
+# (g) fine-tuning
+# ---------------------------------------------------------------------------
+
+FT_CALIB_BATCHES = 4   # FinetuneEngine.predict's calibration window
+
+
+class _Catalog:
+    """The in-memory datasets' feature reader: `get(img_id)` gives the
+    (64, D) fp32 row of Setup's catalog ("img_<i>"), from a host copy."""
+
+    def __init__(self, table):
+        self.rows = table.float().cpu().numpy()
+
+    def get(self, img_id):
+        return self.rows[int(str(img_id).rsplit("_", 1)[1])]
+
+
+def finetune_data(setup, seed: int):
+    """In-memory datasets over Setup's catalog and questions: VQA train
+    (FT_STEPS batches) and eval (FT_EVAL questions), each question with
+    a soft target on 1-3 random answers; NLVR2 train (2 batches) and
+    eval (1 batch), each sentence over its question's image and a random
+    second one with a random label."""
+    import numpy as np
+
+    from xlxmert_tpu_torch.data.datasets import NLVR2Dataset, VQADataset
+    from xlxmert_tpu_torch.data.evaluators import VQAEvaluator
+
+    rng = np.random.RandomState(seed + 1)
+    reader = _Catalog(setup.table)
+    n_train = FT_STEPS * FT_BATCH
+    scores = (0.3, 0.6, 0.9, 1.0)
+    vqa = []
+    for q in setup.questions[:n_train + FT_EVAL]:
+        picks = rng.choice(setup.n_answers, size=rng.randint(1, 4),
+                           replace=False)
+        vqa.append({**q, "label": {setup.label2ans[a]: scores[rng.randint(4)]
+                                   for a in picks}})
+    ans2label = {a: i for i, a in enumerate(setup.label2ans)}
+
+    def vqa_set(part):
+        ds = VQADataset(part, setup.tokenizer, reader, ans2label,
+                        setup.label2ans, max_text_length=FT_TEXT,
+                        grid_size=8)
+        ds.evaluator = VQAEvaluator(ds.id2datum)
+        return ds
+
+    nlvr2 = [{"uid": f"nlvr2_{q['question_id']}", "identifier": f"id_{i}",
+              "img0": q["img_id"], "img1": f"img_{rng.randint(IMAGES)}",
+              "sent": q["sent"], "label": int(rng.randint(2))}
+             for i, q in enumerate(setup.questions[:3 * FT_BATCH])]
+
+    def nlvr2_set(part):
+        return NLVR2Dataset(part, setup.tokenizer, reader,
+                            max_text_length=FT_TEXT, grid_size=8)
+
+    return {"vqa": (vqa_set(vqa[:n_train]), vqa_set(vqa[n_train:])),
+            "nlvr2": (nlvr2_set(nlvr2[:2 * FT_BATCH]),
+                      nlvr2_set(nlvr2[2 * FT_BATCH:]))}
+
+
+def _finetune_config(task, out_dir, seed, **kw):
+    from xlxmert_tpu_torch.core.config import FinetuneConfig
+
+    return FinetuneConfig(task=task, batch_size=FT_BATCH, epochs=1,
+                          lr=FT_LR, max_text_length=FT_TEXT, grid_size=8,
+                          output=out_dir, seed=seed, **kw)
+
+
+def finetune_once(torch, setup, kernels, route, datasets, task, params,
+                  args, device, log, serve_int8=False):
+    """cli/finetune.finetune() for one epoch of `task` with the training
+    attention `route`, from the flax tree `params`, every kernel's count
+    set to 0 just before. Checks the launches of each step (and of the
+    int8 evaluation with serve_int8) and that every loss is finite.
+    Returns (engine, state, numbers)."""
+    from xlxmert_tpu_torch.cli.finetune import finetune
+    from xlxmert_tpu_torch.core.metrics import RunLogger
+    from xlxmert_tpu_torch.tasks.finetune import FinetuneEngine
+
+    train_ds, eval_ds = datasets
+    n_steps = len(train_ds) // FT_BATCH
+    with tempfile.TemporaryDirectory() as out_dir:
+        cfg = _finetune_config(task, out_dir, args.seed,
+                               serve_int8=serve_int8)
+        eng = FinetuneEngine(cfg, 2 if task == "nlvr2" else setup.n_answers,
+                             setup.cfg, total_steps=n_steps,
+                             train_attention=route, device=device)
+        state = eng.create_state(args.seed, params)
+        steps, last = [], {}
+
+        def counts():
+            return {k.name: k.launches for k in kernels}
+
+        def on_step(i, metrics):
+            loss = float(metrics["loss"])          # waits for the step
+            now, seen = time.time(), counts()
+            steps.append({
+                "loss": loss, "grad_norm": float(metrics["grad_norm"]),
+                "ms": (now - last["t"]) * 1e3,
+                "launches": {k: n - last["n"][k] for k, n in seen.items()},
+                "peak_bytes": (torch.cuda.max_memory_allocated()
+                               if device == "cuda" else 0)})
+            last.update(t=now, n=seen)
+
+        for k in kernels:
+            k.launches = 0
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        last.update(t=time.time(), n=counts())
+        logger = RunLogger(out_dir, cfg, use_tensorboard=False)
+        score = finetune(eng, state, train_ds, eval_ds, cfg, logger,
+                         None if task == "nlvr2" else setup.label2ans,
+                         on_step=on_step)
+        logger.close()
+        launches = counts()
+        last_tree = None
+        if not serve_int8:
+            from xlxmert_tpu_torch.core.checkpoint import load_any_checkpoint
+
+            last_tree = load_any_checkpoint(os.path.join(out_dir,
+                                                         "LAST.msgpack"))
+    if len(steps) != n_steps:
+        fail(f"{task} {route}: {len(steps)} steps, expected {n_steps}")
+    for i, s in enumerate(steps):
+        if not math.isfinite(s["loss"]) or not math.isfinite(s["grad_norm"]):
+            fail(f"{task} {route}: step {i} loss {s['loss']}, gradient "
+                 f"norm {s['grad_norm']}")
+        check_launches(f"finetune {route}", s["launches"], 1)
+    train_launches = {k: sum(s["launches"][k] for s in steps)
+                      for k in launches}
+    eval_launches = {k: n - train_launches[k] for k, n in launches.items()}
+    n_eval = math.ceil(len(eval_ds) / FT_BATCH)
+    eval_forwards = n_eval + min(n_eval, FT_CALIB_BATCHES)
+    check_launches("finetune serve_int8" if serve_int8 else "finetune eval",
+                   eval_launches, eval_forwards)
+    if last_tree is not None:
+        want = _flat(state.params())
+        got = _flat(last_tree)
+        if want.keys() != got.keys() or any(
+                not (want[k] == got[k]).all() for k in want):
+            fail(f"{task} {route}: LAST.msgpack does not read back as the "
+                 "trained parameters")
+    after_first = [s["ms"] for s in steps[1:]] or [steps[0]["ms"]]
+    step_ms = sum(after_first) / len(after_first)
+    out = {"task": task, "route": route, "steps": steps, "score": score,
+           "step_ms": step_ms, "examples_per_s": FT_BATCH * 1e3 / step_ms,
+           "peak_bytes": max(s["peak_bytes"] for s in steps),
+           "launches": launches, "eval_forwards": eval_forwards,
+           "eval_int8": serve_int8,
+           "last_msgpack_read_back": last_tree is not None}
+    log(f"  {task} {route}: {n_steps} steps, losses "
+        + " ".join(f"{s['loss']:.4f}" for s in steps)
+        + f"; step {step_ms:.1f} ms after the first ({out['examples_per_s']:.1f}"
+        f" examples/s), peak device memory {out['peak_bytes'] / 2**30:.2f} "
+        f"GiB; valid score {score:.4f} ({'int8' if serve_int8 else 'exact'}"
+        f" model); launches "
+        + (", ".join(f"{k} {n}" for k, n in launches.items() if n) or "none"))
+    return eng, state, out
+
+
+def _flat(tree, prefix=""):
+    """{"a/b/c": numpy leaf} of a nested dict."""
+    import numpy as np
+
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: np.asarray(tree)}
+
+
+def step_card_vs_cpu(torch, setup, batch, params, args, device, log):
+    """One dropout-free training step (loss and gradients) from the same
+    weights on `device` through the kernel route and on the CPU through
+    its plain version, in fp32 and bf16, held to STEP_BARS."""
+    from xlxmert_tpu_torch.ops import attention
+    from xlxmert_tpu_torch.tasks.finetune import FinetuneEngine
+
+    mcfg = setup.cfg.replace(hidden_dropout_prob=0.0,
+                             attention_probs_dropout_prob=0.0)
+    out = {}
+    for dt, (rel_bar, cos_bar) in STEP_BARS.items():
+        res = {}
+        for dev in (device, "cpu"):
+            cfg = _finetune_config("vqa", "unused", args.seed,
+                                   mixed_precision=dt == "bfloat16")
+            eng = FinetuneEngine(cfg, setup.n_answers, mcfg, total_steps=1,
+                                 train_attention="pallas_blhd", device=dev)
+            state = eng.create_state(args.seed, params)
+            before = attention.TRAIN_KERNEL.launches
+            t0 = time.time()
+            loss, _, grads = eng.loss_and_grads(state.model, eng.place(batch),
+                                                state.generator)
+            res[dev] = (float(loss), {n: g.detach().double().cpu()
+                                      for n, g in grads.items()
+                                      if g is not None},
+                        attention.TRAIN_KERNEL.launches - before,
+                        time.time() - t0)
+            del eng, state, grads
+        (lc, gc, nc, _), (lh, gh, _, th) = res[device], res["cpu"]
+        want = PER_FORWARD["finetune pallas_blhd"]["mha_blhd_train"]
+        if device == "cuda" and nc != want:
+            fail(f"card-vs-CPU step {dt}: {nc} mha_blhd_train launches, "
+                 f"expected {want}")
+        if gc.keys() != gh.keys() or not gc:
+            fail(f"card-vs-CPU step {dt}: the two sides differ in which "
+                 "parameters get a gradient")
+        dot = sum(float((gc[n] * gh[n]).sum()) for n in gc)
+        nn_c = sum(float((gc[n] ** 2).sum()) for n in gc)
+        nn_h = sum(float((gh[n] ** 2).sum()) for n in gh)
+        cos = dot / math.sqrt(nn_c * nn_h + 1e-300)
+        rel = abs(lc - lh) / max(abs(lh), 1e-12)
+        out[dt] = {"loss_card": lc, "loss_cpu": lh, "loss_rel_diff": rel,
+                   "grad_cosine": cos, "launches": nc, "cpu_s": th,
+                   "bars": [rel_bar, cos_bar]}
+        log(f"  card vs CPU, one dropout-free step on {FT_CHECK} examples, "
+            f"{dt}: loss {lc:.6f} vs {lh:.6f} (relative {rel:.2e}, bar "
+            f"{rel_bar:g}), gradient cosine {cos:.7f} (bar {cos_bar}); CPU "
+            f"step {th:.1f}s")
+        if not (math.isfinite(lc) and rel < rel_bar and cos > cos_bar):
+            fail(f"card-vs-CPU step {dt}: loss relative difference {rel} "
+                 f"(< {rel_bar}), gradient cosine {cos} (> {cos_bar})")
+    return out
+
+
+STEP_PARTS = ("place", "forward_backward", "grad_norm", "update")
+
+
+def step_breakdown(torch, eng, state, batch, device, n=FT_PARTS):
+    """Where a training step's time goes: the wall ms of train_step's
+    parts (the batch to the device, forward and backward, the gradient
+    norm, the optimizer update), each ended by a synchronize, averaged
+    over n steps on `batch`; on the card, also its busy time in one
+    train_step (the summed device time of the kernels and copies that
+    torch.profiler records) and their number."""
+    from xlxmert_tpu_torch.core.optim import global_norm
+    from xlxmert_tpu_torch.tasks.finetune import accumulate_or_apply
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    parts = dict.fromkeys(STEP_PARTS, 0.0)
+    for _ in range(n):
+        sync()
+        t = time.perf_counter()
+        b = eng.place(batch)
+        sync()
+        parts["place"] += time.perf_counter() - t
+        t = time.perf_counter()
+        _, _, grads = eng.loss_and_grads(state.model, b, state.generator)
+        sync()
+        parts["forward_backward"] += time.perf_counter() - t
+        t = time.perf_counter()
+        global_norm([g for g in grads.values() if g is not None])
+        sync()
+        parts["grad_norm"] += time.perf_counter() - t
+        t = time.perf_counter()
+        accumulate_or_apply(state.opt, state.acc, grads, True)
+        sync()
+        parts["update"] += time.perf_counter() - t
+    out = {k: v * 1e3 / n for k, v in parts.items()}
+    out["device_busy_ms"] = out["device_kernels"] = None
+    if device == "cuda":
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng.train_step(state, batch)
+            sync()
+        on_card = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        out["device_kernels"] = len(on_card)
+        if on_card:
+            out["device_busy_ms"] = sum(e.time_range.elapsed_us()
+                                        for e in on_card) / 1e3
+    return out
+
+
+def run_finetune_path(torch, args, kernels, log, cfg=None, device="cuda",
+                      setup=None):
+    """Phase (g): fine-tuning through cli/finetune.finetune() on
+    in-memory datasets, both training attention routes, the int8
+    evaluation, a repeated-batch loss check, NLVR2, and the card-vs-CPU
+    step. With device="cpu" and a narrow cfg it runs on the CPU, as its
+    test does. Returns its numbers."""
+    from xlxmert_tpu_torch.cli.finetune import evaluate
+    from xlxmert_tpu_torch.tasks.finetune import FinetuneEngine
+
+    setup = setup or Setup(torch, args, log, cfg, device)
+    # fp32 products stay fp32 on the card (PyTorch's default, stated):
+    # the fp32 card-vs-CPU bar is about the kernel, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data = finetune_data(setup, args.seed)
+    train_ds, eval_ds = data["vqa"]
+    params = {task: FinetuneEngine(
+        _finetune_config(task, "unused", args.seed),
+        2 if task == "nlvr2" else setup.n_answers, setup.cfg,
+        device="cpu").init_params(args.seed) for task in ("vqa", "nlvr2")}
+    out = {"routes": {}}
+    launches = {k.name: 0 for k in kernels}
+
+    def add(got):
+        for k, n in got.items():
+            launches[k] += n
+
+    for route in TRAIN_ROUTES:
+        eng, state, res = finetune_once(torch, setup, kernels, route,
+                                        data["vqa"], "vqa", params["vqa"],
+                                        args, device, log)
+        add(res["launches"])
+        if route == "pallas_blhd":
+            # the same trained model through the int8 engine
+            for k in kernels:
+                k.launches = 0
+            score = evaluate(eng, state.model, eval_ds,
+                             eng.cfg.replace(serve_int8=True),
+                             setup.label2ans)
+            got = {k.name: k.launches for k in kernels}
+            n_eval = math.ceil(len(eval_ds) / FT_BATCH)
+            forwards = n_eval + min(n_eval, FT_CALIB_BATCHES)
+            check_launches("finetune serve_int8", got, forwards)
+            add(got)
+            res["int8_score"], res["int8_launches"] = score, got
+            log(f"  vqa {route}: valid score {score:.4f} through the int8 "
+                f"engine ({forwards} forwards: "
+                + ", ".join(f"{k} {n}" for k, n in got.items() if n) + ")")
+        out["routes"][route] = res
+        del eng, state
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+    # one batch, repeated: the loss must fall
+    eng = FinetuneEngine(_finetune_config("vqa", "unused", args.seed),
+                         setup.n_answers, setup.cfg, total_steps=FT_REPEAT,
+                         train_attention="pallas_blhd", device=device)
+    state = eng.create_state(args.seed, params["vqa"])
+    batch = next(iter(train_ds.batches(FT_BATCH)))
+    losses = [float(eng.train_step(state, batch)["loss"])
+              for _ in range(FT_REPEAT)]
+    log(f"  one batch repeated {FT_REPEAT} steps (pallas_blhd): losses "
+        + " ".join(f"{x:.4f}" for x in losses))
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        fail(f"the loss on a repeated batch did not fall: {losses}")
+    out["repeated_batch_losses"] = losses
+    out["step_parts"] = step_breakdown(torch, eng, state, batch, device)
+    parts = out["step_parts"]
+    busy = ("not measured" if parts["device_busy_ms"] is None else
+            f"{parts['device_busy_ms']:.1f} ms in {parts['device_kernels']} "
+            "kernels and copies")
+    log("  where a pallas_blhd step's wall time goes (each part ended by a "
+        "synchronize): " + ", ".join(f"{k} {parts[k]:.1f} ms" for k in
+                                     STEP_PARTS)
+        + f"; the card busy {busy} of one step (torch.profiler)")
+    del eng, state
+
+    _, _, res = finetune_once(torch, setup, kernels, "pallas_blhd",
+                              data["nlvr2"], "nlvr2", params["nlvr2"], args,
+                              device, log, serve_int8=True)
+    add(res["launches"])
+    out["nlvr2"] = res
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    check = next(iter(train_ds.batches(FT_CHECK)))
+    out["card_vs_cpu"] = step_card_vs_cpu(torch, setup, check,
+                                          params["vqa"], args, device, log)
+    out["launches"] = launches
+    return out
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     try:
@@ -941,7 +1546,8 @@ def main(argv=None) -> int:
     log(f"(a) device: {device_name} x{count}; torch {torch.__version__} "
         f"CUDA {torch.version.cuda}")
     kernels = [attention.KERNEL, int8_matmul.KERNEL, ffn.KERNEL,
-               attention.FUSED_MHA_KERNEL, fused_block.KERNEL]
+               attention.FUSED_MHA_KERNEL, fused_block.KERNEL,
+               attention.TRAIN_KERNEL]
     build_s = _build.build_all(kernels, verbose=True)
     log(f"    kernels built in {build_s:.1f}s (parallel nvcc)")
     for k in kernels:
@@ -955,7 +1561,8 @@ def main(argv=None) -> int:
     rng = torch.Generator(device="cuda").manual_seed(args.seed)
     log(f"(b) kernels vs plain versions at every shape of the paths: "
         f"B={BATCH} at text {BUCKETS}, B={CALIB_BATCH} at calibration and "
-        f"the card-vs-CPU checks ({card})")
+        f"the card-vs-CPU checks; training attention at B={FT_BATCH}, "
+        f"{2 * FT_BATCH} and {FT_CHECK} ({card})")
     rows = {"mha_blhd": check_attention(torch, F, attention, cfg, rng, log),
             "int8_dense": check_int8(torch, int8_matmul, quant, cfg, BATCH,
                                      3129, rng, log),
@@ -963,7 +1570,9 @@ def main(argv=None) -> int:
             "fused_mha": check_attention(torch, F, attention, cfg, rng,
                                          log, name="fused_mha"),
             "fused_block": check_fused_block(torch, fused_block, int8_matmul,
-                                             quant, cfg, rng, log)}
+                                             quant, cfg, rng, log),
+            "mha_blhd_train": check_train_attention(torch, F, attention, cfg,
+                                                    rng, log)}
     times = {}
     for name, kernel_rows in rows.items():
         launches_per_kind(name, kernel_rows)
@@ -974,7 +1583,10 @@ def main(argv=None) -> int:
                 f"{t['library_ms']:.4f}"
             composed = "" if t["composed_ms"] is None else \
                 f"  composed {t['composed_ms']:.4f}"
-            log(f"    {kind:11} kernel {t['ms']:.4f}  plain "
+            if t["recompute_ms"] is not None:
+                composed += (f"  backward recompute {t['recompute_ms']:.4f}"
+                             f"  kernel back to back {t['enqueue_ms']:.4f}")
+            log(f"    {kind:17} kernel {t['ms']:.4f}  plain "
                 f"{t['plain_ms']:.4f}  library {lib}{composed}  bound "
                 f"{t['bound_ms']:.4f} ({t['bound_by']})")
 
@@ -990,10 +1602,24 @@ def main(argv=None) -> int:
         "weights and questions")
     fused_path = run_fused_path(torch, args, kernels, log, setup=setup,
                                 int8_answers=int8_answers)
-    paths = {"int8": path, **bf16_paths, "int8+fused_block": fused_path}
+    log(f"(g) fine-tuning: full width, {setup.n_answers} answers, B="
+        f"{FT_BATCH}, text {FT_TEXT}, bf16 mixed precision, random weights")
+    ft = run_finetune_path(torch, args, kernels, log, setup=setup)
+    step = times["mha_blhd_train"]["ft vqa"]
+    pallas = ft["routes"]["pallas_blhd"]
+    ft["kernel_share"] = step["ms"] / pallas["step_ms"]
+    ft["recompute_share"] = step["recompute_ms"] / pallas["step_ms"]
+    log(f"  pallas_blhd step {pallas['step_ms']:.1f} ms: mha_blhd_train "
+        f"{step['ms']:.4f} ms of it ({ft['kernel_share']:.2%}, phase (b)'s "
+        f"times), the backward's einsum recompute {step['recompute_ms']:.4f}"
+        f" ms ({ft['recompute_share']:.2%}); xla step "
+        f"{ft['routes']['xla']['step_ms']:.1f} ms")
+    paths = {"int8": path, **bf16_paths, "int8+fused_block": fused_path,
+             "finetune": ft}
 
     # (d) the kernels line and the device line: times per serving forward
-    # drawn from VQA_LENGTH_MIX; launches summed over the paths' runs
+    # drawn from VQA_LENGTH_MIX (mha_blhd_train: per VQA training step);
+    # launches summed over the paths' runs
     sources = {"mha_blhd": ("xlxmert_tpu_torch/csrc/mha_blhd.cu",
                             "xlxmert_tpu/ops/attention.py:159"),
                "int8_dense": ("xlxmert_tpu_torch/csrc/int8_dense.cu",
@@ -1003,10 +1629,12 @@ def main(argv=None) -> int:
                "fused_mha": ("xlxmert_tpu_torch/csrc/fused_mha.cu",
                              "xlxmert_tpu/ops/attention.py:36"),
                "fused_block": ("xlxmert_tpu_torch/csrc/fused_block.cu",
-                               "xlxmert_tpu/ops/fused_block.py:135")}
+                               "xlxmert_tpu/ops/fused_block.py:135"),
+               "mha_blhd_train": ("xlxmert_tpu_torch/csrc/mha_blhd_train.cu",
+                                  "xlxmert_tpu/ops/attention.py:354")}
     summary = []
     for name, (src, replaces) in sources.items():
-        t = times[name]["mix"]
+        t = times[name]["ft vqa" if name == "mha_blhd_train" else "mix"]
         summary.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
@@ -1027,8 +1655,10 @@ def main(argv=None) -> int:
                    "kernels": summary,
                    "note": "times in 'kernels' are per serving forward at "
                            "B=256, weighted by VQA_LENGTH_MIX ('mix' in "
-                           "'per_forward'); launches are summed over the "
-                           "serving runs in 'paths'"},
+                           "'per_forward'), mha_blhd_train's per VQA "
+                           "training step at B=32 ('ft vqa'; library: SDPA "
+                           "with dropout_p, its own mask); launches are "
+                           "summed over the path runs in 'paths'"},
                   f, indent=1)
     log(f"(d) per-shape numbers in {args.out}; kernel times per serving "
         f"forward at B={BATCH}, weighted by VQA_LENGTH_MIX; launches per "

@@ -1,7 +1,8 @@
 """chip_smoke.py on the CPU: its kernel phase checks every shape that its
-serving paths launch a kernel at, as many times per forward as the paths
-do, and its path phases (int8, bf16 in three configurations, and the
-whole-block fused int8 engine) run end to end at a small width.
+serving and fine-tuning paths launch a kernel at, as many times per
+forward or training step as the paths do, and its path phases (int8,
+bf16 in three configurations, the whole-block fused int8 engine and
+fine-tuning) run end to end at a small width.
 
 The card itself is not needed: on the CPU the kernel wrappers take their
 plain versions, and the test records the shapes they are called at.
@@ -57,15 +58,38 @@ def test_kernel_cases_cover_every_launch_of_each_full_width_forward():
             == per["int8+fused_block"]["fused_block"]
     assert {M for M, _, _ in blocks} == {256 * L for L in chip_smoke.BUCKETS} \
         | {8 * L for L in chip_smoke.BUCKETS} | {16384, 512}
-    on_path = {(b, lq, lk) for b, lq, lk, _, _, _, uses in att if uses}
+    on_path = {(b, lq, lk) for b, lq, lk, _, _, _, uses in att
+               if any(not k.startswith("ft") for k in uses)}
     assert on_path == {(b, lq, lk) for b, lq, lk, _, _, _, uses in fmha
                        if uses}
+    # (g)'s int8 evaluations: VQA at B=32; NLVR2's language layers at 32
+    # rows, the rest at 64
+    assert {(b, lq, lk) for b, lq, lk, _, _, _, uses in att
+            if "ft eval" in uses} == {(32, 20, 20), (32, 64, 64),
+                                      (32, 20, 64), (32, 64, 20)}
+    assert {(b, lq, lk) for b, lq, lk, _, _, _, uses in att
+            if "ft nlvr2 eval" in uses} == {(32, 20, 20), (64, 20, 20),
+                                            (64, 64, 64), (64, 20, 64),
+                                            (64, 64, 20)}
     for L in chip_smoke.BUCKETS:
         assert {(256, L, L), (256, L, 64), (256, 64, L)} <= on_path
         assert {(8, L, L), (8, L, 64), (8, 64, L)} <= on_path
         assert {256 * L, 8 * L} <= {M for M, _ in ffn}
     assert {(8, 20, 20), (8, 64, 64), (8, 20, 64), (8, 64, 20)} <= on_path
     assert {16384, 512} <= {M for M, _ in ffn}
+    # fine-tuning: 34 mha_blhd_train launches per training step, bf16
+    # with the dropout mask in the VQA (B=32) and NLVR2 (B=64) steps, and
+    # without it in each type of the card-vs-CPU step (B=8)
+    train = list(chip_smoke.train_attention_cases(cfg))
+    for kind in chip_smoke.KINDS["mha_blhd_train"]:
+        assert sum(c[-1].get(kind, 0) for c in train) \
+            == per["finetune pallas_blhd"]["mha_blhd_train"] == 34
+    shapes = {(20, 20), (64, 64), (20, 64), (64, 20)}
+    for b, dt, mask in ((32, "bfloat16", True), (64, "bfloat16", True),
+                        (8, "float32", False), (8, "bfloat16", False)):
+        assert {(lq, lk) for B, lq, lk, _, d, m, uses in train
+                if uses and (B, d, m) == (b, dt, mask)} == shapes
+    assert len(train) == 48 and len({c[:-1] for c in train}) == 48
 
 
 def test_path_phase_launches_exactly_the_kernel_phase_cases(monkeypatch):
@@ -347,3 +371,87 @@ def test_fused_phase_launches_exactly_the_kernel_phase_cases(monkeypatch):
         for b, lq, lk, bias, _, _, uses
         in chip_smoke.attention_cases(cfg, chip_smoke.BATCH)
         if "calib" in uses})
+
+
+def test_finetune_phase_launches_exactly_the_kernel_phase_cases(monkeypatch):
+    """Phase (g) on the CPU at a small width: both routes train FT_STEPS
+    steps and evaluate, the int8 evaluation and NLVR2 run, the repeated
+    batch's loss falls, and the card-vs-CPU step agrees (both sides on
+    the CPU here). The training attention is called at exactly the
+    kernel phase's (shape, type, mask) cases: 34 a full-width step, only
+    on the "pallas_blhd" route. Fewer steps than on the card: the loop
+    is the same at any count."""
+    cfg = LxmertConfig(vocab_size=4100, hidden_size=64,
+                       num_attention_heads=1, intermediate_size=96,
+                       l_layers=2, x_layers=1, r_layers=1,
+                       visual_feat_dim=16)
+    monkeypatch.setattr(chip_smoke, "FT_STEPS", 4)
+    monkeypatch.setattr(chip_smoke, "FT_REPEAT", 3)
+    calls = Counter()
+    orig = lxmert.mha_blhd_train
+
+    def rec(q, k, v, bias, mask, n_heads, *a, **kw):
+        dt = str(q.dtype).replace("torch.", "")
+        calls[q.shape[0], q.shape[1], k.shape[1], bias is not None, dt,
+              mask is not None] += 1
+        return orig(q, k, v, bias, mask, n_heads, *a, **kw)
+
+    monkeypatch.setattr(lxmert, "mha_blhd_train", rec)
+    # the int8 evaluations' wrappers: (g)'s "ft ... eval" kernel cases
+    evals = Counter()
+    mha, dense = engine.mha_blhd, int8_matmul.int8_dense_fused
+
+    def mha_rec(q, k, v, bias, n_heads, fast=True):
+        evals["mha_blhd", q.shape[0], q.shape[1], k.shape[1],
+              bias is not None] += 1
+        return mha(q, k, v, bias, n_heads, fast=fast)
+
+    def dense_rec(x, w_i8, col_scale, bias=None, inv_a=None):
+        evals["int8_dense", x.numel() // x.shape[-1], x.shape[-1],
+              w_i8.shape[0], inv_a is not None] += 1
+        return dense(x, w_i8, col_scale, bias, inv_a)
+
+    monkeypatch.setattr(engine, "mha_blhd", mha_rec)
+    monkeypatch.setattr(int8_matmul, "int8_dense_fused", dense_rec)
+    args = chip_smoke.parse_args(["--seed", "6"])
+    out = chip_smoke.run_finetune_path(torch, args, [], lambda m: None,
+                                       cfg=cfg, device="cpu")
+    routes = out["routes"]
+    assert set(routes) == set(chip_smoke.TRAIN_ROUTES)
+    for res in (*routes.values(), out["nlvr2"]):
+        assert all(math.isfinite(s["loss"]) for s in res["steps"])
+    assert len(routes["pallas_blhd"]["steps"]) == chip_smoke.FT_STEPS
+    assert routes["pallas_blhd"]["last_msgpack_read_back"]
+    assert len(out["nlvr2"]["steps"]) == 2 and out["nlvr2"]["eval_int8"]
+    losses = out["repeated_batch_losses"]
+    assert len(losses) == chip_smoke.FT_REPEAT and losses[-1] < losses[0]
+    assert all(out["step_parts"][k] > 0 for k in chip_smoke.STEP_PARTS)
+    for dt, c in out["card_vs_cpu"].items():
+        assert c["loss_rel_diff"] == 0.0 and c["grad_cosine"] > 0.9999999
+    # steps of each kind: VQA on the pallas route, the repeated batch
+    # and the timed parts, NLVR2, and the check step on "card" and CPU in
+    # each type
+    steps = {"ft vqa": (chip_smoke.FT_STEPS + chip_smoke.FT_REPEAT
+                        + chip_smoke.FT_PARTS),
+             "ft nlvr2": 2, "ft check float32": 2, "ft check bfloat16": 2}
+    want = Counter()
+    for *case, uses in chip_smoke.train_attention_cases(cfg):
+        for kind, n in uses.items():
+            want[tuple(case)] += n * steps[kind]
+    assert calls == want
+    # int8 evaluations: VQA calibrates on its 2 batches and serves them,
+    # NLVR2 on its 1
+    att_forwards = {"ft eval": 4, "ft nlvr2 eval": 2}
+    dense_forwards = {"ft eval": 2, "ft eval calib": 2, "ft nlvr2 eval": 1,
+                      "ft nlvr2 eval calib": 1}
+    want = Counter()
+    for b, lq, lk, bias, _, _, uses in chip_smoke.attention_cases(
+            cfg, chip_smoke.BATCH):
+        for kind, n in uses.items():
+            want["mha_blhd", b, lq, lk, bias] += n * att_forwards.get(kind, 0)
+    for M, K, N, static, uses in chip_smoke.dense_cases(
+            cfg, chip_smoke.BATCH, chip_smoke.Setup.n_answers):
+        for kind, n in uses.items():
+            want["int8_dense", M, K, N, static] += \
+                n * dense_forwards.get(kind, 0)
+    assert evals == want

@@ -1,5 +1,6 @@
 """Card-only checks of the port's CUDA kernels against their plain
-PyTorch versions, at the serving path's shapes and at ragged ones.
+PyTorch versions, at the serving and training paths' shapes and at
+ragged ones.
 
 Marked `gpu`; each test skips from its fixture when no CUDA device is
 present. This file imports neither JAX nor the JAX package, so it also
@@ -72,6 +73,87 @@ def test_mha_blhd_kernel_rejects_what_it_cannot_take(cuda):
     q = torch.zeros(2, 8, 768, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="bf16"):
         attention.mha_blhd(q, q, q, torch.zeros(2, 8, device=cuda), 12)
+
+
+# the training path's shapes (text 20, visual 64, both cross directions)
+# with the bias it gives each (text keys are masked), and a ragged one
+TRAIN_SHAPES = [(20, 20, True), (64, 64, False), (20, 64, False),
+                (64, 20, True), (7, 33, True)]
+
+
+def _train_operands(rng, B, Lq, Lk, with_bias, with_mask, dtype, dev):
+    H, D = 12, 64
+    q, k, v = _qkv(rng, B, Lq, Lk, H * D, dtype, dev)
+    bias = mask = None
+    if with_bias:
+        m = np.ones((B, Lk), np.float32)
+        m[1, Lk // 2:] = 0
+        bias = ((1.0 - torch.from_numpy(m)) * -1e9).to(dev, torch.bfloat16)
+    if with_mask:
+        keep = torch.from_numpy(rng.rand(B, H, Lq, Lk) < 0.9).to(dev)
+        mask = keep.to(dtype) / torch.tensor(0.9, dtype=dtype, device=dev)
+    return q, k, v, bias, mask
+
+
+@pytest.mark.parametrize("Lq,Lk,with_bias", TRAIN_SHAPES)
+@pytest.mark.parametrize("with_mask", [True, False])
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.bfloat16, 2e-2),   # bf16 out and p*mask: rounding order
+    (torch.float32, 1e-5),    # fp32 sums in another order
+])
+def test_mha_blhd_train_kernel_matches_plain(cuda, Lq, Lk, with_bias,
+                                             with_mask, dtype, tol):
+    rng = np.random.RandomState(Lq * 100 + Lk)
+    args = _train_operands(rng, 32, Lq, Lk, with_bias, with_mask, dtype,
+                           cuda)
+    before = attention.TRAIN_KERNEL.launches
+    out = attention.mha_blhd_train(*args, 12)
+    torch.cuda.synchronize()
+    assert attention.TRAIN_KERNEL.launches == before + 1
+    ref = attention.mha_blhd_train_reference(*args, 12)
+    assert out.shape == ref.shape and out.dtype == ref.dtype
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= tol, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mha_blhd_train_forward_and_backward_match_the_cpu(cuda, dtype):
+    """Forward (the kernel) and backward (the recompute) on the card
+    against the same Function on the CPU (the plain forward): fp32 to
+    1e-4; bf16 by cosine, the products' sums order differs."""
+    rng = np.random.RandomState(4)
+    q, k, v, bias, mask = _train_operands(rng, 8, 20, 64, False, True,
+                                          dtype, cuda)
+    g = torch.from_numpy(rng.randn(8, 20, 768).astype(np.float32)).to(dtype)
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        before = attention.TRAIN_KERNEL.launches
+        out = attention.mha_blhd_train(*leaves, None, mask.to(dev), 12)
+        out.backward(g.to(dev))
+        assert attention.TRAIN_KERNEL.launches == before + (
+            dev.type == "cuda")
+        res[dev.type] = [t.detach().float().cpu() for t in
+                         (out, *(x.grad for x in leaves))]
+    for a, b in zip(res["cuda"], res["cpu"]):
+        if dtype == torch.float32:
+            torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+        else:
+            cos = torch.nn.functional.cosine_similarity(
+                a.flatten(), b.flatten(), dim=0).item()
+            assert cos > 0.999, cos
+
+
+def test_mha_blhd_train_kernel_rejects_what_it_cannot_take(cuda):
+    q = torch.zeros(2, 8, 768, device=cuda, dtype=torch.bfloat16)
+    bad = torch.ones(2, 12, 8, 8, device=cuda)   # fp32 mask, bf16 q
+    with pytest.raises(ValueError, match="mask"):
+        attention.mha_blhd_train(q, q, q, None, bad, 12)
+    with pytest.raises(ValueError, match="mask"):
+        attention.mha_blhd_train(q, q, q, None, bad[:, :6].to(q.dtype), 12)
+    with pytest.raises(ValueError, match="exceed"):
+        q65 = torch.zeros(2, 65, 768, device=cuda, dtype=torch.bfloat16)
+        attention.mha_blhd_train(q65, q65, q65, None, None, 12)
 
 
 @pytest.mark.parametrize("M,K,N", [

@@ -1,10 +1,14 @@
 // Fused multi-head attention, forward only: the device code shared by
-// mha_blhd.cu (packed heads, (B, L, H*D)) and fused_mha.cu ((B, H, L, D)).
+// mha_blhd.cu (packed heads, (B, L, H*D)), fused_mha.cu ((B, H, L, D))
+// and mha_blhd_train.cu (packed heads with a dropout mask).
 //
 // Per (batch row, head): s = q k^T accumulated in fp32, times 1/sqrt(D),
 // cast to the accumulator type (bf16 when `fast` and the inputs are
 // bf16, else fp32), plus the additive key bias, softmax, p cast to the
-// input type, p v accumulated in fp32, stored in the input type.
+// input type, [times the pre-scaled dropout mask, in the input type,]
+// p v accumulated in fp32, stored in the input type. The mask is a
+// template flag (kMask): the two serving kernels instantiate the body
+// without it and compile to the code they had before it existed.
 //
 // Layout: each of q, k, v and the output has its own batch, head and row
 // stride (elements); D = 64 is contiguous. Packed heads put head h at
@@ -84,13 +88,14 @@ __device__ __forceinline__ void load_tile(float* dst, int sstride,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    mha_blhd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v,
-                    const __nv_bfloat16* __restrict__ bias,
-                    T* __restrict__ out, int H, int Lq, int Lk, Strides st,
-                    float scale, int round_scores) {
+// mask (kMask only): (B, H, Lq, Lk) contiguous, in the input type, the
+// keep/keep_prob factors the caller drew.
+template <typename T, bool kMask>
+__device__ __forceinline__ void attend_body(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const __nv_bfloat16* __restrict__ bias,
+    const T* __restrict__ mask, T* __restrict__ out, int H, int Lq, int Lk,
+    const Strides& st, float scale, int round_scores) {
   constexpr int kCols = D / 16;  // output columns per thread in p.v
   extern __shared__ float smem[];
   const int b = blockIdx.x / H;
@@ -190,15 +195,25 @@ __global__ void __launch_bounds__(kThreads)
       for (int o = 16; o > 0; o >>= 1)
         sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, o));
       if (round_scores) sum = round_bf16(sum);
+      const T* mrow = nullptr;
+      if (kMask)
+        mrow = mask + ((static_cast<long long>(b) * H + h) * Lq + i) * Lk;
       if (in0) {
         float p = __fdiv_rn(e0, sum);
         if (round_scores) p = round_bf16(p);
-        row[lane] = through(p, static_cast<T*>(nullptr));
+        p = through(p, static_cast<T*>(nullptr));
+        // p and the mask are values of T: their product rounds once to T
+        if (kMask) p = through(__fmul_rn(p, to_f32(mrow[lane])),
+                               static_cast<T*>(nullptr));
+        row[lane] = p;
       }
       if (in1) {
         float p = __fdiv_rn(e1, sum);
         if (round_scores) p = round_bf16(p);
-        row[lane + 32] = through(p, static_cast<T*>(nullptr));
+        p = through(p, static_cast<T*>(nullptr));
+        if (kMask) p = through(__fmul_rn(p, to_f32(mrow[lane + 32])),
+                               static_cast<T*>(nullptr));
+        row[lane + 32] = p;
       }
     }
   }
@@ -238,44 +253,84 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The serving kernels' entry point (mha_blhd.cu, fused_mha.cu): no mask.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    mha_blhd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v,
+                    const __nv_bfloat16* __restrict__ bias,
+                    T* __restrict__ out, int H, int Lq, int Lk, Strides st,
+                    float scale, int round_scores) {
+  attend_body<T, false>(q, k, v, bias, nullptr, out, H, Lq, Lk, st, scale,
+                        round_scores);
+}
+
+// The training kernel's entry point (mha_blhd_train.cu): p times mask.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    mha_blhd_masked_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v,
+                           const __nv_bfloat16* __restrict__ bias,
+                           const T* __restrict__ mask, T* __restrict__ out,
+                           int H, int Lq, int Lk, Strides st, float scale,
+                           int round_scores) {
+  attend_body<T, true>(q, k, v, bias, mask, out, H, Lq, Lk, st, scale,
+                       round_scores);
+}
+
 template <typename T>
 int launch_typed(const void* q, const void* k, const void* v,
-                 const void* bias, void* out, int B, int H, int Lq, int Lk,
-                 const Strides& st, float scale, int round_scores,
-                 cudaStream_t stream) {
+                 const void* bias, const void* mask, void* out, int B, int H,
+                 int Lq, int Lk, const Strides& st, float scale,
+                 int round_scores, cudaStream_t stream) {
   const int lq_pad = 8 * ((Lq + 7) / 8);
   const int lk_pad = 16 * ((Lk + 15) / 16);
   const size_t smem = sizeof(float) * (lq_pad * (D + 1) + lk_pad * (D + 1) +
                                        Lk * D + lq_pad * (lk_pad + 1));
-  auto kernel = mha_blhd_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<B * H, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const __nv_bfloat16*>(bias),
-      static_cast<T*>(out), H, Lq, Lk, st, scale, round_scores);
+  cudaError_t err;
+  if (mask == nullptr) {
+    auto kernel = mha_blhd_kernel<T>;
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<B * H, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const __nv_bfloat16*>(bias),
+        static_cast<T*>(out), H, Lq, Lk, st, scale, round_scores);
+  } else {
+    auto kernel = mha_blhd_masked_kernel<T>;
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<B * H, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const __nv_bfloat16*>(bias),
+        static_cast<const T*>(mask), static_cast<T*>(out), H, Lq, Lk, st,
+        scale, round_scores);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype: 0 = fp32, 1 = bf16; bias: bf16 (B, Lk) or null; head dim 64.
-// scale: float32(1/sqrt(64)) as the caller rounds it; `fast` rounds the
-// scores and softmax to bf16 (bf16 inputs only). Returns the launch's
-// cudaError_t (0 on success).
+// dtype: 0 = fp32, 1 = bf16; bias: bf16 (B, Lk) or null; mask: (B, H,
+// Lq, Lk) contiguous in the input type, or null (the serving kernels
+// always pass null); head dim 64. scale: float32(1/sqrt(64)) as the
+// caller rounds it; `fast` rounds the scores and softmax to bf16 (bf16
+// inputs only). Returns the launch's cudaError_t (0 on success).
 inline int launch(const void* q, const void* k, const void* v,
-                  const void* bias, void* out, int B, int H, int Lq, int Lk,
-                  const Strides& st, float scale, int dtype, int fast,
-                  void* stream) {
+                  const void* bias, const void* mask, void* out, int B, int H,
+                  int Lq, int Lk, const Strides& st, float scale, int dtype,
+                  int fast, void* stream) {
   if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || Lq > kMaxL || Lk > kMaxL)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch_typed<__nv_bfloat16>(q, k, v, bias, out, B, H, Lq, Lk, st,
-                                       scale, fast, s);
+    return launch_typed<__nv_bfloat16>(q, k, v, bias, mask, out, B, H, Lq,
+                                       Lk, st, scale, fast, s);
   if (dtype == 0)
-    return launch_typed<float>(q, k, v, bias, out, B, H, Lq, Lk, st, scale,
-                               0, s);
+    return launch_typed<float>(q, k, v, bias, mask, out, B, H, Lq, Lk, st,
+                               scale, 0, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

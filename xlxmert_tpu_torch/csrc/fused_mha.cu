@@ -23,8 +23,8 @@ int fused_mha_launch(const void* q, const void* k, const void* v,
                                  {k_bs, k_hs, k_rs},
                                  {v_bs, v_hs, v_rs},
                                  {H * o_hs, o_hs, attention::D}};
-  return attention::launch(q, k, v, bias, out, B, H, Lq, Lk, st, scale,
-                           dtype, fast, stream);
+  return attention::launch(q, k, v, bias, nullptr, out, B, H, Lq, Lk, st,
+                           scale, dtype, fast, stream);
 }
 
 const char* fused_mha_error_string(int code) {

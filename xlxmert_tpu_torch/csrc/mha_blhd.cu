@@ -22,8 +22,8 @@ int mha_blhd_launch(const void* q, const void* k, const void* v,
                                  {k_bs, attention::D, k_rs},
                                  {v_bs, attention::D, v_rs},
                                  {Lq * o_rs, attention::D, o_rs}};
-  return attention::launch(q, k, v, bias, out, B, H, Lq, Lk, st, scale,
-                           dtype, fast, stream);
+  return attention::launch(q, k, v, bias, nullptr, out, B, H, Lq, Lk, st,
+                           scale, dtype, fast, stream);
 }
 
 const char* mha_blhd_error_string(int code) {

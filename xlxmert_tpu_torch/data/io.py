@@ -1,5 +1,6 @@
-"""Host-side input: json files and grid-feature HDF5 (port of the parts
-of xlxmert_tpu/data/io.py the serving path reads).
+"""Host-side input: json files, grid-feature HDF5 and a prefetching
+loader (port of the parts of xlxmert_tpu/data/io.py that serving and
+fine-tuning read).
 
 File contract: `<encoder>_<split>_grid<g>.h5` holds
 f[img_id]['features'] = (g, g, 2048). `h5py` is imported only when a
@@ -44,3 +45,40 @@ class GridFeatureReader:
 
     def __exit__(self, *exc):
         self.close()
+
+
+class PrefetchLoader:
+    """Wrap a batch-producing iterable with a background prefetch thread
+    (the torch DataLoader worker's role for one training process). An
+    error in the worker is re-raised on the consumer's thread: it never
+    looks like the end of the epoch."""
+
+    def __init__(self, it_factory, depth: int = 4):
+        self.it_factory = it_factory
+        self.depth = depth
+
+    def __iter__(self):
+        import queue
+
+        q: "queue.Queue" = queue.Queue(maxsize=self.depth)
+        done = object()
+        err: list = []
+
+        def worker():
+            try:
+                for item in self.it_factory():
+                    q.put(item)
+            except BaseException as e:  # re-raised on the consumer thread
+                err.append(e)
+            finally:
+                q.put(done)
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        while True:
+            item = q.get()
+            if item is done:
+                if err:
+                    raise err[0]
+                break
+            yield item

@@ -6,7 +6,22 @@ cross-attention applied in both directions) -> pooler, and the VQA
 answer head. Modules keep HF LXMERT's attribute names, so
 `core/convert.flax_to_state_dict` loads the reference's flax parameters
 and `convert_torch_state_dict(model.state_dict())` gives them back.
-Forward only, without dropout: the serving and parity paths.
+
+Eval mode (`model.eval()`) is flax's `deterministic=True`: no dropout,
+the serving and parity paths. Train mode is the training forward: a
+`Dropout` wherever flax has `nn.Dropout` (attention probabilities,
+AttentionOutput, FFOutput, the visual encoder's output, the
+embeddings), each drawing from the `torch.Generator` passed to the
+model's forward. `train_attention` is what the JAX
+`train_attention_mode()` sets, held by the model (`TrainOptions`):
+  - "xla" (and "auto"): the einsum route, flax's dropout
+    `where(keep, p / keep_prob, 0)` on the probabilities;
+  - "pallas_blhd": `ops/attention.mha_blhd_train`, the kernel route:
+    the mask keep.to(dtype) / keep_prob in the compute type, drawn here,
+    applied by the kernel (a different rounding from the einsum
+    route's, as in the JAX package).
+Parameters stay fp32 in training; `Dense` casts them to the compute
+type, so gradients land in fp32.
 
 `dtype` is the compute type (bf16 for serving, fp32 for the exact
 path), as the flax modules' `dtype`. Each op rounds where flax does:
@@ -42,7 +57,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from xlxmert_tpu_torch.core.config import LxmertConfig
-from xlxmert_tpu_torch.ops.attention import fused_mha, mha_blhd, softmax_last
+from xlxmert_tpu_torch.ops.attention import (
+    fused_mha, mha_blhd, mha_blhd_train, softmax_last,
+)
 from xlxmert_tpu_torch.ops.ffn import fused_ffn
 
 NEG_INF = -1e9  # additive key mask (fp32- and bf16-safe)
@@ -81,6 +98,57 @@ class ServingOptions:
 
 
 EXACT = ServingOptions()
+TRAIN_ATTENTION_ROUTES = ("xla", "pallas_blhd", "auto")
+
+
+def train_attention_mode(impl: str = "auto") -> str:
+    """The training attention route `impl` resolves to: "auto" is
+    "xla", as in the JAX package (its kernel route measured slower on
+    the TPU, which is no statement about the H100)."""
+    if impl not in TRAIN_ATTENTION_ROUTES:
+        raise ValueError(f"train_attention={impl!r}: use one of "
+                         f"{TRAIN_ATTENTION_ROUTES}")
+    return "xla" if impl == "auto" else impl
+
+
+class TrainOptions:
+    """What the training forward reads, shared by a model's modules: the
+    training attention route and the generator of the current forward
+    (set by `LxmertModel.forward`, None outside it)."""
+
+    def __init__(self, attention: str = "xla"):
+        self.attention = train_attention_mode(attention)
+        self.generator: Optional[torch.Generator] = None
+
+    def keep(self, shape, keep_prob: float, device) -> torch.Tensor:
+        """keep ~ Bernoulli(keep_prob), boolean, from the generator."""
+        if self.generator is None:
+            raise RuntimeError("a training forward with dropout needs a "
+                               "torch.Generator: pass generator= to the "
+                               "model, or call model.eval()")
+        return torch.rand(shape, generator=self.generator,
+                          device=device) < keep_prob
+
+
+class Dropout(nn.Module):
+    """flax nn.Dropout: where(keep, x / keep_prob, 0) in x's type, keep
+    drawn from the model's generator; the identity in eval mode."""
+
+    def __init__(self, rate: float, train: TrainOptions):
+        super().__init__()
+        self.rate, self.train_opts = rate, train
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep_prob = 1.0 - self.rate
+        keep = self.train_opts.keep(x.shape, keep_prob, x.device)
+        # divided by keep_prob in x's type, as jnp divides by a weak
+        # scalar; a device tensor, so the division is not a reciprocal,
+        # made by a fill (a copy from the host would wait for the card)
+        kp = torch.full((), keep_prob, dtype=x.dtype, device=x.device)
+        return torch.where(keep, x / kp, torch.zeros((), dtype=x.dtype,
+                                                      device=x.device))
 
 
 def gelu(x: torch.Tensor, approximate: bool) -> torch.Tensor:
@@ -135,11 +203,12 @@ class Embedding(nn.Module):
         return F.embedding(ids, self.weight).to(dtype)
 
 
-def einsum_attention(q, k, v, bias, fast: bool) -> torch.Tensor:
+def einsum_attention(q, k, v, bias, fast: bool, dropout=None
+                     ) -> torch.Tensor:
     """The JAX "xla" route over (B, H, L, D): the scores product in the
     accumulator type (the input type when `fast`, else fp32), times
     1/sqrt(D) rounded to that type, + bias, softmax, p in the input
-    type, p.v in the input type."""
+    type, `dropout` on p (training), p.v in the input type."""
     acc = q.dtype if fast else torch.float32
     D = q.shape[-1]
     s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2))
@@ -147,6 +216,8 @@ def einsum_attention(q, k, v, bias, fast: bool) -> torch.Tensor:
     if bias is not None:
         s = s + bias.to(acc)
     p = softmax_last(s).to(q.dtype)
+    if dropout is not None:
+        p = dropout(p)
     return torch.matmul(p, v)
 
 
@@ -154,64 +225,85 @@ class Attention(nn.Module):
     """Multi-head attention core (HF LxmertAttention): (B, Lq, H*D)
     context of `hidden` attending to `context`."""
 
-    def __init__(self, cfg: LxmertConfig, opts: ServingOptions):
+    def __init__(self, cfg: LxmertConfig, opts: ServingOptions,
+                 train: TrainOptions):
         super().__init__()
         self.n_heads, self.head_dim = cfg.num_attention_heads, cfg.head_dim
-        self.opts = opts
+        self.opts, self.train_opts = opts, train
         hid = cfg.hidden_size
         self.query = Dense(hid, hid)
         self.key = Dense(hid, hid)
         self.value = Dense(hid, hid)
+        self.dropout = Dropout(cfg.attention_probs_dropout_prob, train)
 
     def forward(self, hidden, context, bias=None):
         q, k, v = self.query(hidden), self.key(context), self.value(context)
-        route = self.opts.attention_route(q.device)
-        fast = self.opts.fast
         H, D = self.n_heads, self.head_dim
         B, Lq, _ = q.shape
         Lk = k.shape[1]
+        if self.training:
+            route = ("blhd_train" if self.train_opts.attention
+                     == "pallas_blhd" else "einsum")
+        else:
+            route = self.opts.attention_route(q.device)
         kbias = bias
         if bias is not None and route != "einsum":
             # the kernels take a bf16 (B, Lk) bias; the mask's 0 / -1e9
             # give the same softmax in either type
             kbias = bias.to(torch.bfloat16).reshape(B, Lk)
+        if route == "blhd_train":
+            # the dropout mask is drawn here, pre-scaled in the compute
+            # type, and applied inside the kernel
+            rate, mask = self.dropout.rate, None
+            if rate > 0.0:
+                keep = self.train_opts.keep((B, H, Lq, Lk), 1.0 - rate,
+                                            q.device)
+                mask = keep.to(q.dtype) / torch.full(
+                    (), 1.0 - rate, dtype=q.dtype, device=q.device)
+            return mha_blhd_train(q, k, v, kbias, mask, H)
+        fast = self.opts.fast
         if route == "blhd":
             return mha_blhd(q, k, v, kbias, H, fast)
         qh, kh, vh = (t.view(B, -1, H, D).transpose(1, 2) for t in (q, k, v))
         if route == "pallas":
             ctx = fused_mha(qh, kh, vh, kbias, fast)
         else:
-            ctx = einsum_attention(qh, kh, vh, bias, fast)
+            ctx = einsum_attention(qh, kh, vh, bias, fast,
+                                   self.dropout if self.training else None)
         return ctx.transpose(1, 2).reshape(B, Lq, H * D)
 
 
 class AttentionOutput(nn.Module):
     """Projection + residual + LayerNorm (HF LxmertAttentionOutput)."""
 
-    def __init__(self, cfg: LxmertConfig):
+    def __init__(self, cfg: LxmertConfig, train: TrainOptions):
         super().__init__()
         self.dense = Dense(cfg.hidden_size, cfg.hidden_size)
+        self.dropout = Dropout(cfg.hidden_dropout_prob, train)
         self.LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
 
     def forward(self, hidden, input_tensor):
-        return self.LayerNorm(self.dense(hidden) + input_tensor)
+        return self.LayerNorm(self.dropout(self.dense(hidden))
+                              + input_tensor)
 
 
 class SelfAttentionLayer(nn.Module):
-    def __init__(self, cfg: LxmertConfig, opts: ServingOptions):
+    def __init__(self, cfg: LxmertConfig, opts: ServingOptions,
+                 train: TrainOptions):
         super().__init__()
-        self.self = Attention(cfg, opts)
-        self.output = AttentionOutput(cfg)
+        self.self = Attention(cfg, opts, train)
+        self.output = AttentionOutput(cfg, train)
 
     def forward(self, x, bias=None):
         return self.output(self.self(x, x, bias), x)
 
 
 class CrossAttentionLayer(nn.Module):
-    def __init__(self, cfg: LxmertConfig, opts: ServingOptions):
+    def __init__(self, cfg: LxmertConfig, opts: ServingOptions,
+                 train: TrainOptions):
         super().__init__()
-        self.att = Attention(cfg, opts)
-        self.output = AttentionOutput(cfg)
+        self.att = Attention(cfg, opts, train)
+        self.output = AttentionOutput(cfg, train)
 
     def forward(self, x, ctx, ctx_bias=None):
         return self.output(self.att(x, ctx, ctx_bias), x)
@@ -228,20 +320,21 @@ class Intermediate(nn.Module):
 
 
 class FFOutput(nn.Module):
-    def __init__(self, cfg: LxmertConfig):
+    def __init__(self, cfg: LxmertConfig, train: TrainOptions):
         super().__init__()
         self.dense = Dense(cfg.intermediate_size, cfg.hidden_size)
+        self.dropout = Dropout(cfg.hidden_dropout_prob, train)
         self.LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
 
     def forward(self, x, input_tensor):
-        return self.LayerNorm(self.dense(x) + input_tensor)
+        return self.LayerNorm(self.dropout(self.dense(x)) + input_tensor)
 
 
 def ffn_block(inter: Intermediate, out: FFOutput, att: torch.Tensor,
               opts: ServingOptions) -> torch.Tensor:
     """Intermediate -> FFOutput, through the fused kernel when
-    `opts.use_fused_ffn` (models/lxmert.py::_ffn_block)."""
-    if opts.use_fused_ffn:
+    `opts.use_fused_ffn` in eval mode (models/lxmert.py::_ffn_block)."""
+    if opts.use_fused_ffn and not out.training:
         return fused_ffn(att, inter.dense.weight, inter.dense.bias,
                          out.dense.weight, out.dense.bias,
                          out.LayerNorm.weight, out.LayerNorm.bias,
@@ -252,12 +345,13 @@ def ffn_block(inter: Intermediate, out: FFOutput, att: torch.Tensor,
 class TransformerLayer(nn.Module):
     """Self-attention + FFN block (HF LxmertLayer)."""
 
-    def __init__(self, cfg: LxmertConfig, opts: ServingOptions):
+    def __init__(self, cfg: LxmertConfig, opts: ServingOptions,
+                 train: TrainOptions):
         super().__init__()
         self.opts = opts
-        self.attention = SelfAttentionLayer(cfg, opts)
+        self.attention = SelfAttentionLayer(cfg, opts, train)
         self.intermediate = Intermediate(cfg, opts)
-        self.output = FFOutput(cfg)
+        self.output = FFOutput(cfg, train)
 
     def forward(self, x, bias=None):
         att = self.attention(x, bias)
@@ -268,16 +362,17 @@ class XLayer(nn.Module):
     """Cross-modality block (HF LxmertXLayer): ONE `visual_attention`
     applied in both directions with shared weights."""
 
-    def __init__(self, cfg: LxmertConfig, opts: ServingOptions):
+    def __init__(self, cfg: LxmertConfig, opts: ServingOptions,
+                 train: TrainOptions):
         super().__init__()
         self.opts = opts
-        self.visual_attention = CrossAttentionLayer(cfg, opts)
-        self.lang_self_att = SelfAttentionLayer(cfg, opts)
-        self.visn_self_att = SelfAttentionLayer(cfg, opts)
+        self.visual_attention = CrossAttentionLayer(cfg, opts, train)
+        self.lang_self_att = SelfAttentionLayer(cfg, opts, train)
+        self.visn_self_att = SelfAttentionLayer(cfg, opts, train)
         self.lang_inter = Intermediate(cfg, opts)
-        self.lang_output = FFOutput(cfg)
+        self.lang_output = FFOutput(cfg, train)
         self.visn_inter = Intermediate(cfg, opts)
-        self.visn_output = FFOutput(cfg)
+        self.visn_output = FFOutput(cfg, train)
 
     def forward(self, lang, lang_bias, visn, visn_bias):
         lang_att = self.visual_attention(lang, visn, visn_bias)
@@ -292,26 +387,28 @@ class XLayer(nn.Module):
 
 class VisualFeatureEncoder(nn.Module):
     """(feats, boxes) -> hidden (HF LxmertVisualFeatureEncoder):
-    (LN(visn_fc(feats)) + LN(box_fc(boxes))) * 0.5."""
+    (LN(visn_fc(feats)) + LN(box_fc(boxes))) * 0.5, then dropout."""
 
-    def __init__(self, cfg: LxmertConfig):
+    def __init__(self, cfg: LxmertConfig, train: TrainOptions):
         super().__init__()
         hid, eps = cfg.hidden_size, cfg.layer_norm_eps
         self.visn_fc = Dense(cfg.visual_feat_dim, hid)
         self.visn_layer_norm = LayerNorm(hid, eps)
         self.box_fc = Dense(cfg.visual_pos_dim, hid)
         self.box_layer_norm = LayerNorm(hid, eps)
+        self.dropout = Dropout(cfg.hidden_dropout_prob, train)
 
     def forward(self, feats, pos, dtype):
         x = self.visn_layer_norm(self.visn_fc(feats.to(dtype)))
         y = self.box_layer_norm(self.box_fc(pos.to(dtype)))
-        return (x + y) * 0.5
+        return self.dropout((x + y) * 0.5)
 
 
 class Embeddings(nn.Module):
-    """Word + position + token-type embeddings (HF LxmertEmbeddings)."""
+    """Word + position + token-type embeddings (HF LxmertEmbeddings),
+    LayerNorm, dropout."""
 
-    def __init__(self, cfg: LxmertConfig):
+    def __init__(self, cfg: LxmertConfig, train: TrainOptions):
         super().__init__()
         hid = cfg.hidden_size
         self.word_embeddings = Embedding(cfg.vocab_size, hid)
@@ -319,6 +416,7 @@ class Embeddings(nn.Module):
                                              hid)
         self.token_type_embeddings = Embedding(cfg.type_vocab_size, hid)
         self.LayerNorm = LayerNorm(hid, cfg.layer_norm_eps)
+        self.dropout = Dropout(cfg.hidden_dropout_prob, train)
 
     def forward(self, input_ids, token_type_ids, dtype):
         L = input_ids.shape[1]
@@ -328,21 +426,22 @@ class Embeddings(nn.Module):
         h = (self.word_embeddings(input_ids, dtype)
              + self.position_embeddings(positions, dtype)
              + self.token_type_embeddings(token_type_ids, dtype))
-        return self.LayerNorm(h)
+        return self.dropout(self.LayerNorm(h))
 
 
 class Encoder(nn.Module):
     """l_layers language -> r_layers visual -> x_layers cross blocks (HF
     LxmertEncoder; the language stack is named `layer`)."""
 
-    def __init__(self, cfg: LxmertConfig, opts: ServingOptions):
+    def __init__(self, cfg: LxmertConfig, opts: ServingOptions,
+                 train: TrainOptions):
         super().__init__()
-        self.visn_fc = VisualFeatureEncoder(cfg)
-        self.layer = nn.ModuleList(TransformerLayer(cfg, opts)
+        self.visn_fc = VisualFeatureEncoder(cfg, train)
+        self.layer = nn.ModuleList(TransformerLayer(cfg, opts, train)
                                    for _ in range(cfg.l_layers))
-        self.r_layers = nn.ModuleList(TransformerLayer(cfg, opts)
+        self.r_layers = nn.ModuleList(TransformerLayer(cfg, opts, train)
                                       for _ in range(cfg.r_layers))
-        self.x_layers = nn.ModuleList(XLayer(cfg, opts)
+        self.x_layers = nn.ModuleList(XLayer(cfg, opts, train)
                                       for _ in range(cfg.x_layers))
 
     def forward(self, lang, lang_bias, feats, pos, visn_bias, dtype):
@@ -367,39 +466,49 @@ class Pooler(nn.Module):
 
 class LxmertModel(nn.Module):
     """Embeddings -> encoder -> pooler (HF LxmertModel). Returns (lang,
-    visn, pooled) in the compute type."""
+    visn, pooled) in the compute type. In train mode every dropout, and
+    the "pallas_blhd" attention mask, draws from `generator`."""
 
     def __init__(self, cfg: LxmertConfig, dtype=torch.float32,
-                 options: ServingOptions = EXACT):
+                 options: ServingOptions = EXACT,
+                 train_attention: str = "xla"):
         super().__init__()
         self.config, self.dtype, self.options = cfg, dtype, options
-        self.embeddings = Embeddings(cfg)
-        self.encoder = Encoder(cfg, options)
+        self.train_opts = TrainOptions(train_attention)
+        self.embeddings = Embeddings(cfg, self.train_opts)
+        self.encoder = Encoder(cfg, options, self.train_opts)
         self.pooler = Pooler(cfg)
 
     def forward(self, input_ids, visual_feats, visual_pos,
                 attention_mask=None, visual_attention_mask=None,
-                token_type_ids=None):
-        lang_bias = extend_attention_mask(attention_mask, self.dtype)
-        visn_bias = extend_attention_mask(visual_attention_mask, self.dtype)
-        emb = self.embeddings(input_ids, token_type_ids, self.dtype)
-        lang, visn = self.encoder(emb, lang_bias, visual_feats, visual_pos,
-                                  visn_bias, self.dtype)
-        return lang, visn, self.pooler(lang)
+                token_type_ids=None,
+                generator: Optional[torch.Generator] = None):
+        self.train_opts.generator = generator
+        try:
+            lang_bias = extend_attention_mask(attention_mask, self.dtype)
+            visn_bias = extend_attention_mask(visual_attention_mask,
+                                              self.dtype)
+            emb = self.embeddings(input_ids, token_type_ids, self.dtype)
+            lang, visn = self.encoder(emb, lang_bias, visual_feats,
+                                      visual_pos, visn_bias, self.dtype)
+            return lang, visn, self.pooler(lang)
+        finally:
+            self.train_opts.generator = None
 
 
 class VisualAnswerHead(nn.Module):
-    """hid -> 2*hid -> gelu -> LN -> num_labels, fp32 logits (HF
-    LxmertVisualAnswerHead; `logit_fc` indices 0, 2 and 3 hold
-    parameters, 1 is the gelu)."""
+    """in_features (default hid) -> 2*hid -> gelu -> LN -> num_labels,
+    fp32 logits (HF LxmertVisualAnswerHead; `logit_fc` indices 0, 2 and 3
+    hold parameters, 1 is the gelu). NLVR2's head reads 2*hid."""
 
     def __init__(self, cfg: LxmertConfig, num_labels: int,
-                 options: ServingOptions = EXACT):
+                 options: ServingOptions = EXACT,
+                 in_features: Optional[int] = None):
         super().__init__()
         hid = cfg.hidden_size
         self.options = options
         self.logit_fc = nn.ModuleList([
-            Dense(hid, 2 * hid), nn.Identity(),
+            Dense(in_features or hid, 2 * hid), nn.Identity(),
             LayerNorm(2 * hid, cfg.layer_norm_eps),
             Dense(2 * hid, num_labels)])
 

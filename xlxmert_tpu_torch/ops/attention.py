@@ -1,4 +1,5 @@
-"""Fused multi-head attention, forward only: two layouts, one kernel.
+"""Fused multi-head attention: two layouts, one kernel, and a training
+variant with a dropout mask and a backward.
 
 `mha_blhd` ports `xlxmert_tpu/ops/attention.py::mha_blhd`: q (B, Lq,
 H*D), k/v (B, Lk, H*D), optional additive key bias (B, 1, 1, Lk) or
@@ -10,11 +11,20 @@ function over (B, H, L, D) operands, with a (B, Lk) bias, returning
 (B, H, Lq, D). Only the layout differs: head h sits at a head stride,
 not at column h*D.
 
-Both CUDA kernels are `xlxmert_tpu_torch/csrc/attention.cuh` (its header
-says what bounds it on an H100 and what the design does about it),
-exported by `csrc/mha_blhd.cu` and `csrc/fused_mha.cu`, each with its
-own launch count. `mha_blhd_reference` and `fused_mha_reference` are
-the same functions in plain PyTorch, with the same rounding points.
+`mha_blhd_train` ports `xlxmert_tpu/ops/attention.py::mha_blhd_train`,
+the training path's attention: `mha_blhd`'s function with a pre-scaled
+dropout mask (B, H, Lq, Lk) applied to the probabilities, as a
+`torch.autograd.Function`. Its forward is the kernel; its backward
+recomputes `blhd_einsum_reference` with the same mask in plain PyTorch,
+as the JAX package's custom_vjp recomputes its einsum outside Pallas.
+
+The three CUDA kernels are `xlxmert_tpu_torch/csrc/attention.cuh` (its
+header says what bounds it on an H100 and what the design does about
+it), exported by `csrc/mha_blhd.cu`, `csrc/fused_mha.cu` and
+`csrc/mha_blhd_train.cu` (the mask as a template flag), each with its
+own launch count. `mha_blhd_reference`, `fused_mha_reference` and
+`mha_blhd_train_reference` are the same functions in plain PyTorch,
+with the same rounding points.
 
 The wrappers take the plain versions only for tensors on the CPU. For
 CUDA tensors they launch the kernel or raise.
@@ -37,6 +47,10 @@ KERNEL = Kernel("mha_blhd", "mha_blhd.cu",
 FUSED_MHA_KERNEL = Kernel("fused_mha", "fused_mha.cu",
                           [_P, _P, _P, _P, _P, _I, _I, _I, _I]
                           + [_LL] * 9 + [ctypes.c_float, _I, _I, _P])
+# mha_blhd's arguments with the mask pointer after the bias
+TRAIN_KERNEL = Kernel("mha_blhd_train", "mha_blhd_train.cu",
+                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I]
+                      + [_LL] * 6 + [ctypes.c_float, _I, _I, _P])
 
 MAX_LEN = 64
 HEAD_DIM = 64
@@ -51,11 +65,12 @@ def softmax_last(s: torch.Tensor) -> torch.Tensor:
     return e / e.float().sum(-1, keepdim=True).to(e.dtype)
 
 
-def _attend(qh, kh, vh, bias, fast: bool) -> torch.Tensor:
+def _attend(qh, kh, vh, bias, fast: bool, mask=None) -> torch.Tensor:
     """The kernels' arithmetic over (B, H, L, D): fp32 q.k^T, times
     1/sqrt(D), cast to the accumulator type (the input type when `fast`,
     else fp32), plus the bias in that type, softmax, p cast to the input
-    type, fp32 p.v, the result in the input type."""
+    type, times the mask in the input type (when given), fp32 p.v, the
+    result in the input type."""
     B, Lk = kh.shape[0], kh.shape[2]
     D = qh.shape[-1]
     acc = qh.dtype if fast else torch.float32
@@ -65,18 +80,59 @@ def _attend(qh, kh, vh, bias, fast: bool) -> torch.Tensor:
     if bias is not None:
         s = s + bias.reshape(B, 1, 1, Lk).to(acc)
     p = softmax_last(s).to(vh.dtype)
+    if mask is not None:
+        p = p * mask.to(p.dtype)
     return (p.float() @ vh.float()).to(qh.dtype)
+
+
+def _heads(t: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """(B, L, H*D) -> (B, H, L, D), a view."""
+    B, L, HD = t.shape
+    return t.reshape(B, L, n_heads, HD // n_heads).transpose(1, 2)
 
 
 def mha_blhd_reference(q, k, v, bias, n_heads: int,
                        fast: bool = True) -> torch.Tensor:
     """Plain PyTorch version of the packed-head kernel."""
     B, Lq, HD = q.shape
+    ctx = _attend(_heads(q, n_heads), _heads(k, n_heads),
+                  _heads(v, n_heads), bias, fast)
+    return ctx.transpose(1, 2).reshape(B, Lq, HD)
+
+
+def mha_blhd_train_reference(q, k, v, bias, mask, n_heads: int,
+                             fast: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of the training kernel's forward: the
+    packed-head kernel with p times `mask` ((B, H, Lq, Lk) pre-scaled
+    keep/keep_prob, or None) in the input type before p.v."""
+    B, Lq, HD = q.shape
+    ctx = _attend(_heads(q, n_heads), _heads(k, n_heads),
+                  _heads(v, n_heads), bias, fast, mask)
+    return ctx.transpose(1, 2).reshape(B, Lq, HD)
+
+
+def blhd_einsum_reference(q, k, v, bias, mask, n_heads: int,
+                          fast: bool = False) -> torch.Tensor:
+    """`_blhd_einsum_ref` of the JAX package: the einsum formulation of
+    the training attention that its backward recomputes. The scores
+    product in the accumulator type (fp32 unless `fast`), times
+    1/sqrt(D) in that type, + bias, softmax, p in the input type, times
+    the mask, p.v in the input type. Differentiable."""
+    B, Lq, HD = q.shape
     Lk = k.shape[1]
     D = HD // n_heads
-    heads = lambda t, L: t.reshape(B, L, n_heads, D).transpose(1, 2)  # noqa
-    ctx = _attend(heads(q, Lq), heads(k, Lk), heads(v, Lk), bias, fast)
-    return ctx.transpose(1, 2).reshape(B, Lq, HD)
+    acc = q.dtype if fast else torch.float32
+    qh, kh, vh = (_heads(t, n_heads) for t in (q, k, v))
+    s = torch.matmul(qh.to(acc), kh.to(acc).transpose(-1, -2))
+    # a device scalar made by a fill, not copied from the host: a copy
+    # from pageable memory would wait for the card at every call
+    s = s * torch.full((), 1.0 / np.sqrt(D), dtype=acc, device=s.device)
+    if bias is not None:
+        s = s + bias.reshape(B, 1, 1, Lk).to(acc)
+    p = softmax_last(s).to(q.dtype)
+    if mask is not None:
+        p = p * mask.to(p.dtype)
+    return torch.matmul(p, vh).transpose(1, 2).reshape(B, Lq, HD)
 
 
 def fused_mha_reference(q, k, v, bias, fast: bool = False) -> torch.Tensor:
@@ -84,16 +140,57 @@ def fused_mha_reference(q, k, v, bias, fast: bool = False) -> torch.Tensor:
     return _attend(q, k, v, bias, fast)
 
 
-def _check_operand(t: torch.Tensor, name: str, B: int, HD: int, vec: int):
+def _check_operand(t: torch.Tensor, name: str, B: int, HD: int, vec: int,
+                   what: str):
     if t.dim() != 3 or t.shape[0] != B or t.shape[2] != HD:
-        raise ValueError(f"mha_blhd: {name} has shape {tuple(t.shape)}, "
+        raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
                          f"expected ({B}, L, {HD})")
     if t.stride(2) != 1 or t.stride(0) % vec or t.stride(1) % vec \
             or t.data_ptr() % 16:
-        raise ValueError(f"mha_blhd: {name} needs unit column stride, "
+        raise ValueError(f"{what}: {name} needs unit column stride, "
                          f"16-byte alignment and row/batch strides that are "
                          f"multiples of {vec} elements; got strides "
                          f"{t.stride()}")
+
+
+def _check_blhd(what: str, q, k, v, bias, n_heads: int) -> None:
+    """What the packed-head kernels take: q/k/v of one dtype on one CUDA
+    device, head dim 64, lengths up to 64, a contiguous bf16 bias."""
+    B, Lq, HD = q.shape
+    Lk = k.shape[1]
+    D = HD // n_heads
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise ValueError(f"{what}: q/k/v must share one dtype of "
+                         f"{list(_DTYPE_CODE)}; got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    if D * n_heads != HD or D != HEAD_DIM:
+        raise ValueError(f"{what}: head dim {HD}/{n_heads} is not "
+                         f"{HEAD_DIM}")
+    if not (1 <= Lq <= MAX_LEN and 1 <= Lk <= MAX_LEN):
+        raise ValueError(f"{what}: lengths ({Lq}, {Lk}) exceed {MAX_LEN}")
+    if v.shape[1] != Lk:
+        raise ValueError(f"{what}: k and v lengths differ")
+    vec = 16 // q.element_size()
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        if t.device != q.device:
+            raise ValueError(f"{what}: {name} is on {t.device}")
+        _check_operand(t, name, B, HD, vec, what)
+    if bias is not None and (
+            bias.dtype != torch.bfloat16 or bias.device != q.device
+            or bias.numel() != B * Lk or not bias.is_contiguous()):
+        raise ValueError(f"{what}: bias must be a contiguous bf16 (B, Lk) "
+                         f"or (B, 1, 1, Lk) tensor on {q.device}")
+
+
+def _blhd_args(q, k, v, n_heads: int, fast: bool):
+    """The kernels' trailing arguments after the pointers: B, H, Lq, Lk,
+    the q/k/v batch and row strides, scale, dtype code, fast."""
+    B, Lq, HD = q.shape
+    return (B, n_heads, Lq, k.shape[1], q.stride(0), q.stride(1),
+            k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+            float(np.float32(1.0 / np.sqrt(HD // n_heads))),
+            _DTYPE_CODE[q.dtype], int(bool(fast)))
 
 
 def mha_blhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -107,41 +204,78 @@ def mha_blhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return mha_blhd_reference(q, k, v, bias, n_heads, fast)
     if q.device.type != "cuda":
         raise ValueError(f"mha_blhd: unsupported device {q.device}")
-    B, Lq, HD = q.shape
-    Lk = k.shape[1]
-    D = HD // n_heads
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
-        raise ValueError(f"mha_blhd: q/k/v must share one dtype of "
-                         f"{list(_DTYPE_CODE)}; got {q.dtype}, {k.dtype}, "
-                         f"{v.dtype}")
-    if D * n_heads != HD or D != HEAD_DIM:
-        raise ValueError(f"mha_blhd: head dim {HD}/{n_heads} is not "
-                         f"{HEAD_DIM}")
-    if not (1 <= Lq <= MAX_LEN and 1 <= Lk <= MAX_LEN):
-        raise ValueError(f"mha_blhd: lengths ({Lq}, {Lk}) exceed "
-                         f"{MAX_LEN}")
-    if v.shape[1] != Lk:
-        raise ValueError("mha_blhd: k and v lengths differ")
-    vec = 16 // q.element_size()
-    for t, name in ((q, "q"), (k, "k"), (v, "v")):
-        if t.device != q.device:
-            raise ValueError(f"mha_blhd: {name} is on {t.device}")
-        _check_operand(t, name, B, HD, vec)
-    if bias is not None and (
-            bias.dtype != torch.bfloat16 or bias.device != q.device
-            or bias.numel() != B * Lk or not bias.is_contiguous()):
-        raise ValueError("mha_blhd: bias must be a contiguous bf16 (B, Lk) "
-                         f"or (B, 1, 1, Lk) tensor on {q.device}")
-    out = torch.empty((B, Lq, HD), dtype=q.dtype, device=q.device)
+    _check_blhd("mha_blhd", q, k, v, bias, n_heads)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     KERNEL.launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(), B,
-        n_heads, Lq, Lk, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), float(np.float32(1.0 / np.sqrt(D))),
-        _DTYPE_CODE[q.dtype], int(bool(fast)), stream)
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        *_blhd_args(q, k, v, n_heads, fast), stream)
     return out
+
+
+def _mha_blhd_train_forward(q, k, v, bias, mask, n_heads: int,
+                            fast: bool) -> torch.Tensor:
+    """The training attention's forward: the kernel for CUDA tensors,
+    the plain version for CPU ones."""
+    if q.device.type == "cpu":
+        return mha_blhd_train_reference(q, k, v, bias, mask, n_heads, fast)
+    if q.device.type != "cuda":
+        raise ValueError(f"mha_blhd_train: unsupported device {q.device}")
+    _check_blhd("mha_blhd_train", q, k, v, bias, n_heads)
+    B, Lq, _ = q.shape
+    if mask is not None and (
+            mask.shape != (B, n_heads, Lq, k.shape[1])
+            or mask.dtype != q.dtype or mask.device != q.device
+            or not mask.is_contiguous()):
+        raise ValueError(f"mha_blhd_train: mask must be a contiguous "
+                         f"{q.dtype} ({B}, {n_heads}, {Lq}, {k.shape[1]}) "
+                         f"tensor on {q.device}; got {mask.dtype} "
+                         f"{tuple(mask.shape)} on {mask.device}")
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    TRAIN_KERNEL.launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if bias is None else bias.data_ptr(),
+        None if mask is None else mask.data_ptr(), out.data_ptr(),
+        *_blhd_args(q, k, v, n_heads, fast), stream)
+    return out
+
+
+class _MhaBlhdTrain(torch.autograd.Function):
+    """Forward: the kernel (or, on the CPU, its plain version). Backward:
+    `blhd_einsum_reference` recomputed with the saved mask, so the
+    (B, H, Lq, Lk) probabilities are never stored (the JAX package's
+    `_blhd_train_vjp_bwd`). Gradients for q, k and v; none for the bias
+    and the mask, which the model never trains."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, mask, n_heads, fast):
+        ctx.save_for_backward(q, k, v, bias, mask)
+        ctx.n_heads, ctx.fast = n_heads, fast
+        return _mha_blhd_train_forward(q, k, v, bias, mask, n_heads, fast)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, mask = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = blhd_einsum_reference(*leaves, bias, mask, ctx.n_heads,
+                                        ctx.fast)
+            gq, gk, gv = torch.autograd.grad(out, leaves, g)
+        return gq, gk, gv, None, None, None, None
+
+
+def mha_blhd_train(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   bias: Optional[torch.Tensor],
+                   dropout_mask: Optional[torch.Tensor], n_heads: int,
+                   fast: bool = False) -> torch.Tensor:
+    """Differentiable packed-head attention of the training path; see
+    the module docstring. q (B, Lq, H*D), k/v (B, Lk, H*D), bias bf16
+    (B, Lk) or (B, 1, 1, Lk) or None, dropout_mask the pre-scaled
+    keep/keep_prob (B, H, Lq, Lk) in q's dtype, or None. Each CUDA
+    forward launches `csrc/mha_blhd_train.cu` once."""
+    return _MhaBlhdTrain.apply(q, k, v, bias, dropout_mask, n_heads, fast)
 
 
 def _check_heads(t: torch.Tensor, name: str, B: int, H: int, vec: int):

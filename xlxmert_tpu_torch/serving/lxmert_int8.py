@@ -25,8 +25,9 @@ amax of its input during a calibration forward (the dynamic int8 path);
 replaces the reference's id()-keyed two-pass trace.
 
 The whole-block fused engine (serving/lxmert_fused.py) runs on the
-calibrated tree this module builds. Not yet ported: `nlvr2_forward`
-(with fine-tuning) and the int8 attention einsums (with sampling).
+calibrated tree this module builds. `nlvr2_forward` serves the NLVR2
+head (fine-tuning's `--serve_int8` eval). Not yet ported: the int8
+attention einsums (with sampling).
 """
 from __future__ import annotations
 
@@ -397,6 +398,41 @@ def answer_head_forward(hp: AnswerHead, pooled):
     return hp.w2(hp.ln(h)).float()
 
 
+def vqa_forward(qp: LxmertInt8, head_qp: AnswerHead, input_ids,
+                visual_feats, visual_pos, attention_mask=None,
+                n_heads: int = 12):
+    """VQA/GQA logits: the backbone's pooled output through the head."""
+    _, _, pooled = lxmert_forward(qp, input_ids, visual_feats, visual_pos,
+                                  attention_mask=attention_mask,
+                                  n_heads=n_heads)
+    return answer_head_forward(head_qp, pooled)
+
+
+def nlvr2_forward(qp: LxmertInt8, head_qp: AnswerHead, input_ids,
+                  visual_feats, visual_pos, attention_mask=None,
+                  n_heads: int = 12):
+    """Int8 NLVR2 forward (models/task_heads.NLVR2Model's function): the
+    (B, 2, V, D) features flattened to (2B, V, D), the two pooled outputs
+    concatenated into the 2*hidden head input. The language stack works
+    per row, so the sentence is encoded once on B rows and its output
+    repeated per image (the JAX engine's serving optimization, exact);
+    the cross layers run on 2B rows."""
+    B, n_images, V, D = visual_feats.shape
+    if n_images != 2:
+        raise ValueError(f"nlvr2_forward takes 2 images per example, got "
+                         f"{n_images}")
+    feats = visual_feats.reshape(B * 2, V, D)
+    pos = visual_pos.reshape(B * 2, V, -1)
+    lang, lang_bias = lang_encode(qp, input_ids, attention_mask, n_heads)
+    lang = lang.repeat_interleave(2, dim=0)
+    if lang_bias is not None:
+        lang_bias = lang_bias.repeat_interleave(2, dim=0)
+    visn, visn_bias = visn_encode(qp, feats, pos, None, n_heads)
+    _, _, pooled = cross_encode(qp, lang, visn, lang_bias, visn_bias,
+                                n_heads)
+    return answer_head_forward(head_qp, pooled.reshape(B, -1))
+
+
 # ---------------------------------------------------------------------------
 # Calibration
 # ---------------------------------------------------------------------------
@@ -412,20 +448,19 @@ def calibration_sites(*trees: nn.Module) -> List[Tuple[str, AmaxObserver]]:
 
 @torch.inference_mode()
 def calibrate(qp: LxmertInt8, head_qp: AnswerHead, batches,
-              cfg: LxmertConfig) -> Dict[str, float]:
-    """Record per-site activation maxima over VQA-forward batches of
-    (ids, feats, pos, mask) on the dynamic int8 path: store each site's
-    amax on it and return {name: amax} (names of calibration_sites). Run
-    it before apply_calibration."""
+              cfg: LxmertConfig, forward=vqa_forward) -> Dict[str, float]:
+    """Record per-site activation maxima over batches of (ids, feats,
+    pos, mask) through `forward` (vqa_forward or nlvr2_forward) on the
+    dynamic int8 path: store each site's amax on it and return {name:
+    amax} (names of calibration_sites). Run it before
+    apply_calibration."""
     sites = calibration_sites(qp, head_qp)
     for _, m in sites:
         m.start_observing()
     try:
         for ids, feats, pos, mask in batches:
-            _, _, pooled = lxmert_forward(
-                qp, ids, feats, pos, attention_mask=mask,
-                n_heads=cfg.num_attention_heads)
-            answer_head_forward(head_qp, pooled)
+            forward(qp, head_qp, ids, feats, pos, attention_mask=mask,
+                    n_heads=cfg.num_attention_heads)
     finally:
         running = [m.stop_observing() for _, m in sites]
     seen = [(name, m, r) for (name, m), r in zip(sites, running)
