@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed 0] [--out runs/chip_smoke.json]
 
 Phases, each of which fails the script on error:
-  (a) device and build: the card's name, count and power limit; the six
+  (a) device and build: the card's name, count and power limit; the seven
       CUDA kernels built from csrc/ in parallel (nvcc, -Xptxas -v);
   (b) kernels: each kernel against its plain PyTorch version on the card
       at every shape the paths give it (serving at B=256 for each bucket
@@ -24,7 +24,11 @@ Phases, each of which fails the script on error:
       bf16 and fp32, with and without the dropout mask; its library time
       is SDPA with dropout_p at the same rate (SDPA draws its own mask),
       and beside it the plain-PyTorch time of the backward's einsum
-      recompute; its times are summed per training step;
+      recompute; its times are summed per training step (pre-training's
+      B=256 step is among its cases). mha_hbatch is held to its plain
+      version at (h)'s four attention shapes at B=256 and the
+      calibration batch, with and without a bias, beside SDPA and
+      mha_blhd (B1, the same function) at the same shapes;
   (c) the serving path at full width (LxmertConfig(): 9/5/5 layers, 768
       hidden, 2048-d grid features, 3,129 answers) with random weights
       from --seed: a 512-image bf16 catalog in device memory, 2,048
@@ -68,9 +72,26 @@ Phases, each of which fails the script on error:
       route) from the same weights, in fp32 and bf16, held to
       STEP_BARS (loss, gradient cosine). Per step: wall ms after the
       first, examples/s, peak memory and the kernel's share;
+  (h) the attention-layout driver (scripts/drive_attention_layout_torch
+      .run_int8) at full width, B=256, text 20, through base (einsum),
+      bqhk, pallas32 (mha_blhd) and hbatch32 (mha_hbatch): launches per
+      forward checked exactly (34 mha_hbatch per hbatch forward and 0
+      elsewhere), max |d logits| and argmax agreement against base (at
+      least LAYOUT_AGREE), q/s of chained forwards;
+  (i) pre-training at the canonical recipe's widths (LxmertConfig(),
+      10,000 random centroids, random cluster ids on the 8x8 grid,
+      B=256, text 20, word_mask / matched / vis_mask round-robin,
+      --visualLosses obj, --vis_mask_predict, bf16, dropout 0.1, lr 1e-4)
+      through cli/pretrain.pretrain(): PT_STEPS steps on each training
+      attention route (34 and 0 mha_blhd_train launches a step), the
+      evaluation, the epoch checkpoint read back; per task the step ms
+      after the first, examples/s, peak memory, the step's parts and the
+      card's busy time; each task's dropout-free step on the card against
+      the CPU with injected masks at B=8, held to STEP_BARS, with the same
+      parameters left without a gradient;
   (d) one JSON line listing the kernels (times per serving forward of
-      the length mix; mha_blhd_train's per training step), then the
-      device line last.
+      the length mix; mha_blhd_train's per training step, mha_hbatch's
+      per layout forward), then the device line last.
 
 Per-shape numbers go to --out. Without a CUDA device, or outside the
 repository, the script exits non-zero and prints no result.
@@ -116,6 +137,15 @@ PER_FORWARD = {
     "finetune xla": {},
     "finetune eval": {},          # the exact model: einsum attention
     "finetune serve_int8": {"mha_blhd": 34, "int8_dense": 129},
+    # (h): per forward of each attention-layout variant (its calibration
+    # forward is the int8 engine's "calib")
+    "layout base": {"int8_dense": 129},
+    "layout bqhk": {"int8_dense": 129},
+    "layout pallas": {"mha_blhd": 34, "int8_dense": 129},
+    "layout hbatch": {"mha_hbatch": 34, "int8_dense": 129},
+    # (i): per pre-training step of each route
+    "pretrain pallas_blhd": {"mha_blhd_train": 34},
+    "pretrain xla": {},
 }
 # serve(bf16=True, attention=..., fused_ffn=...) of each bf16 path, and
 # the attention route its CPU copy takes (None: no card-vs-CPU check)
@@ -141,6 +171,20 @@ TRAIN_ROUTES = ("pallas_blhd", "xla")
 # card-vs-CPU bars of one dropout-free training step: (largest relative
 # difference of the loss, smallest cosine of the global gradient)
 STEP_BARS = {"float32": (1e-4, 0.9999), "bfloat16": (2e-2, 0.99)}
+# (h) the attention-layout driver over the int8 engine
+LAYOUT_VARIANTS = ("base", "bqhk", "pallas32", "hbatch32")
+LAYOUT_TEXT = 20      # the driver's --text_len
+LAYOUT_K = 10         # forwards chained per timing (--scan_k)
+LAYOUT_REPEATS = 2
+LAYOUT_AGREE = 0.99   # hbatch's argmax agreement with "base" at B=256
+# (i) pre-training, the canonical recipe's widths (scripts/pretrain.bash)
+PT_BATCH = 256
+PT_TEXT = 20
+PT_STEPS = 6          # two round-robins of (vis_mask, word_mask, matched)
+PT_LR = 1e-4
+PT_CHECK = 8          # batch of the card-vs-CPU step
+PT_PARTS = 2          # steps of each task timed part by part
+PT_TASKS = ("vis_mask", "word_mask", "matched")
 
 
 def fail(msg: str) -> None:
@@ -243,7 +287,10 @@ KINDS = {"mha_blhd": forward_kinds() + check_kinds() + FT_EVAL_KINDS,
          "fused_block": forward_kinds()[:-1] + check_kinds(),
          # training steps: VQA, NLVR2 and the card-vs-CPU step per type
          "mha_blhd_train": ["ft vqa", "ft nlvr2", "ft check float32",
-                            "ft check bfloat16"]}
+                            "ft check bfloat16", "pt step",
+                            "pt check float32", "pt check bfloat16"],
+         # (h)'s hbatch forwards at B=BATCH, text LAYOUT_TEXT
+         "mha_hbatch": [f"layout L={LAYOUT_TEXT}"]}
 
 
 def attention_shapes(cfg, B):
@@ -390,19 +437,96 @@ def check_attention(torch, F, attention, cfg, rng, log, name="mha_blhd"):
     return rows
 
 
+def hbatch_cases(cfg, B):
+    """(batch, Lq, Lk, with_bias, uses) of mha_hbatch: the four attention
+    shapes of (h)'s forwards at B (text LAYOUT_TEXT, the text keys with
+    the mask bias, the visual ones without) and at the calibration
+    batch, each with and without a bias; `uses` is empty but where the
+    case is the path's."""
+    vis, text = 64, LAYOUT_TEXT
+    nl, nr, nx = cfg.l_layers, cfg.r_layers, cfg.x_layers
+    kind = f"layout L={text}"
+    for b in (B, CALIB_BATCH):
+        for lq, lk, path_bias, n in ((text, text, True, nl + nx),
+                                     (vis, vis, False, nr + nx),
+                                     (text, vis, False, nx),
+                                     (vis, text, True, nx)):
+            for bias in (True, False):
+                on = b == B and bias == path_bias
+                yield b, lq, lk, bias, {kind: n} if on else {}
+
+
+def check_hbatch(torch, F, attention, cfg, rng, log):
+    """mha_hbatch against its plain version on column slices of fused
+    projections with a (B, 1, 1, Lk) bias or none, bf16; SDPA on the
+    same heads as the library call, and mha_blhd (B1, the same function)
+    at the same shapes."""
+    H, HD = cfg.num_attention_heads, cfg.hidden_size
+    D = HD // H
+    dt = "bfloat16"
+    rows = []
+    for B, lq, lk, with_bias, uses in hbatch_cases(cfg, BATCH):
+        q, k, v, bias = _qkv_bias(torch, rng, B, lq, lk, HD, torch.bfloat16,
+                                  with_bias)
+        args = (q, k, v, None if bias is None else bias[:, None, None], H)
+        out = attention.mha_hbatch(*args)
+        ref = attention.mha_hbatch_reference(*args)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        if not (err <= MHA_TOL[dt]) or not torch.isfinite(out).all():
+            fail(f"mha_hbatch B={B} {lq}x{lk} bias={with_bias}: max abs "
+                 f"err {err} > {MHA_TOL[dt]}")
+        heads = [t.view(B, -1, H, D).transpose(1, 2) for t in (q, k, v)]
+        mask = None if bias is None else bias[:, None, None]
+        # a launch takes the host about as long as the card takes for
+        # it: time the card with its queue kept full (enqueue_ms is the
+        # back-to-back time)
+        enqueue = time_ms(torch, lambda: attention.mha_hbatch(*args))
+        timed = {
+            "ms": queued_ms(torch, lambda: attention.mha_hbatch(*args)),
+            "plain_ms": queued_ms(
+                torch, lambda: attention.mha_hbatch_reference(*args)),
+            "library_ms": queued_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    *heads, attn_mask=mask)),
+            "b1_ms": queued_ms(
+                torch, lambda: attention.mha_blhd(*args, True))}
+        kernel, plain, library, b1 = (t for t, _ in timed.values())
+        nbytes = (B * (2 * lq + 2 * lk) * HD * 2
+                  + (0 if bias is None else bias.numel() * 2))
+        row = {"Lq": lq, "Lk": lk, "bias": with_bias, "dtype": dt, "B": B,
+               "max_abs_err": err, "tol": MHA_TOL[dt], "ms": kernel,
+               "enqueue_ms": enqueue, "plain_ms": plain,
+               "library_ms": library, "b1_ms": b1,
+               "not_queued": [k for k, (_, ok) in timed.items() if not ok],
+               "uses": uses, **bound(nbytes, 4.0 * B * H * lq * lk * D, dt)}
+        rows.append(row)
+        log(f"  mha_hbatch B={B:3d} {lq:2d}x{lk:2d} bias={with_bias!s:5} "
+            f"err {err:.2e} (tol {MHA_TOL[dt]:g})  kernel {kernel:.4f} ms "
+            f"(back to back {enqueue:.4f})  plain {plain:.4f}  sdpa "
+            f"{library:.4f}  mha_blhd {b1:.4f}  bound {row['bound_ms']:.4f} "
+            f"({row['bound_by']})"
+            + (f"  (not queued, waits for the card: "
+               f"{', '.join(row['not_queued'])})" if row["not_queued"] else ""))
+    return rows
+
+
 def train_attention_cases(cfg):
     """(batch, Lq, Lk, with_bias, dtype, with_mask, uses) of
     mha_blhd_train: the four attention shapes of a training forward
     (text keys carry the padding bias) at the VQA batch, at NLVR2's (the
     sentence repeated per image: two rows per example) and at the
     card-vs-CPU step's, in bf16 and fp32, with and without the dropout
-    mask. `uses` is empty but where the case is the path's: the bf16
-    steps with dropout ("ft vqa", "ft nlvr2") and the dropout-free check
-    step in each type."""
+    mask, and at pre-training's batch (its check step's shapes are the
+    fine-tuning check's). `uses` is empty but where the case is the
+    path's: the bf16 steps with dropout ("ft vqa", "ft nlvr2", "pt
+    step") and the dropout-free check steps in each type."""
     vis, text = 64, FT_TEXT
     nl, nr, nx = cfg.l_layers, cfg.r_layers, cfg.x_layers
+    # pre-training's steps and its check step at the same text length
+    assert PT_TEXT == FT_TEXT and PT_CHECK == FT_CHECK
     for kind, b in (("ft vqa", FT_BATCH), ("ft nlvr2", 2 * FT_BATCH),
-                    ("ft check", FT_CHECK)):
+                    ("ft check", FT_CHECK), ("pt step", PT_BATCH)):
         for lq, lk, bias, n in ((text, text, True, nl + nx),
                                 (vis, vis, False, nr + nx),
                                 (text, vis, False, nx),
@@ -410,7 +534,8 @@ def train_attention_cases(cfg):
             for dt in ("bfloat16", "float32"):
                 for mask in (True, False):
                     if kind == "ft check":
-                        uses = {} if mask else {f"ft check {dt}": n}
+                        uses = {} if mask else {f"ft check {dt}": n,
+                                                f"pt check {dt}": n}
                     else:
                         uses = {kind: n} if mask and dt == "bfloat16" else {}
                     yield b, lq, lk, bias, dt, mask, uses
@@ -750,7 +875,7 @@ def per_forward(rows, mix, kinds):
     kind, and over a serving forward drawn from `mix` (the share of
     questions, hence of full batches, at each bucket length)."""
     keys = ("ms", "enqueue_ms", "plain_ms", "library_ms", "composed_ms",
-            "recompute_ms", "bound_ms", "bytes_ms", "ops_ms")
+            "recompute_ms", "b1_ms", "bound_ms", "bytes_ms", "ops_ms")
     out = {}
     for kind in kinds:
         used = [(r, r["uses"][kind]) for r in rows if kind in r["uses"]]
@@ -1315,6 +1440,15 @@ def _flat(tree, prefix=""):
     return {prefix[:-1]: np.asarray(tree)}
 
 
+def grad_cosine(a, b) -> float:
+    """Cosine of two gradients given as {name: tensor} with equal keys,
+    each the concatenation of its tensors."""
+    dot = sum(float((a[n] * b[n]).sum()) for n in a)
+    na = sum(float((a[n] ** 2).sum()) for n in a)
+    nb = sum(float((b[n] ** 2).sum()) for n in b)
+    return dot / math.sqrt(na * nb + 1e-300)
+
+
 def step_card_vs_cpu(torch, setup, batch, params, args, device, log):
     """One dropout-free training step (loss and gradients) from the same
     weights on `device` through the kernel route and on the CPU through
@@ -1351,10 +1485,7 @@ def step_card_vs_cpu(torch, setup, batch, params, args, device, log):
         if gc.keys() != gh.keys() or not gc:
             fail(f"card-vs-CPU step {dt}: the two sides differ in which "
                  "parameters get a gradient")
-        dot = sum(float((gc[n] * gh[n]).sum()) for n in gc)
-        nn_c = sum(float((gc[n] ** 2).sum()) for n in gc)
-        nn_h = sum(float((gh[n] ** 2).sum()) for n in gh)
-        cos = dot / math.sqrt(nn_c * nn_h + 1e-300)
+        cos = grad_cosine(gc, gh)
         rel = abs(lc - lh) / max(abs(lh), 1e-12)
         out[dt] = {"loss_card": lc, "loss_cpu": lh, "loss_rel_diff": rel,
                    "grad_cosine": cos, "launches": nc, "cpu_s": th,
@@ -1516,6 +1647,411 @@ def run_finetune_path(torch, args, kernels, log, cfg=None, device="cuda",
     return out
 
 
+# ---------------------------------------------------------------------------
+# (h) the attention-layout driver
+# ---------------------------------------------------------------------------
+
+
+def _layout_driver():
+    """scripts/drive_attention_layout_torch.py, loaded as a module."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", "drive_attention_layout_torch.py")
+    spec = importlib.util.spec_from_file_location(
+        "drive_attention_layout_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_layout_path(torch, args, kernels, log, cfg=None, device="cuda"):
+    """Phase (h): the attention-layout driver's int8 run
+    (scripts/drive_attention_layout_torch.run_int8) at B=BATCH, text
+    LAYOUT_TEXT, through LAYOUT_VARIANTS: the calibration forward must
+    launch as the int8 engine's and each variant's forwards exactly
+    PER_FORWARD's. Every variant's answers are held to the first's
+    (base): hbatch's on LAYOUT_AGREE of the batch, the others' on
+    ARGMAX_AGREE, and an answer may differ only where base's top answers
+    lie within NEAR_TIE_SD (the int8 engine quantizes each attention's
+    output, so a one-step difference in a bf16 score can move a
+    near-tie of random weights). With device="cpu" and a narrow cfg it
+    runs on the CPU, as its test does."""
+    drv = _layout_driver()
+    dargs = drv.parse_args([
+        "--batch", str(BATCH), "--scan_k", str(LAYOUT_K),
+        "--repeats", str(LAYOUT_REPEATS),
+        "--variants", ",".join(LAYOUT_VARIANTS),
+        "--text_len", str(LAYOUT_TEXT), "--seed", str(args.seed),
+        "--device", device])
+    res = drv.run_int8(dargs, kernels, lambda m: log(f"  {m}"), cfg=cfg)
+    calib = res["calib"]
+    check_launches("int8", calib["launches"], calib["forwards"])
+    launches = dict(calib["launches"])
+    out = {"calib": calib, "variants": {}}
+    base = res["variants"][LAYOUT_VARIANTS[0]]["logits"]
+    for name, r in res["variants"].items():
+        kind = name.rstrip("0123456789")
+        check_launches("layout " + kind, r["launches"], r["forwards"])
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        logits = r.pop("logits")
+        if not torch.isfinite(logits).all():
+            fail(f"layout {name}: logits are not finite")
+        swapped = (logits.argmax(-1) != base.argmax(-1)).nonzero()[:, 0]
+        r["swap_margins_sd"] = [
+            float((base[i].max() - base[i, logits[i].argmax()])
+                  / base[i].std()) for i in swapped.tolist()]
+        bar = LAYOUT_AGREE if kind == "hbatch" else ARGMAX_AGREE
+        if name != LAYOUT_VARIANTS[0] and not r["argmax_agree"] >= bar:
+            fail(f"layout {name}: answers agree with {LAYOUT_VARIANTS[0]} on "
+                 f"{r['argmax_agree']}, fewer than {bar}")
+        if any(m > NEAR_TIE_SD for m in r["swap_margins_sd"]):
+            fail(f"layout {name}: an answer swapped against "
+                 f"{LAYOUT_VARIANTS[0]} is no near-tie there (margins "
+                 f"{r['swap_margins_sd']} sd > {NEAR_TIE_SD})")
+        out["variants"][name] = r
+        log(f"  {name}: {r['qps']:.1f} q/s, max|d| {r['max_abs_diff']:.4f} "
+            f"and argmax agreement {r['argmax_agree']} against "
+            f"{LAYOUT_VARIANTS[0]}"
+            + (f" (margins of the swapped answers there: "
+               f"{', '.join(f'{m:.4f}' for m in r['swap_margins_sd'])} sd)"
+               if r["swap_margins_sd"] else "") + "; launches per forward: "
+            + (", ".join(f"{k} {n // r['forwards']}"
+                         for k, n in r["launches"].items() if n) or "none"))
+    out["launches"] = launches
+    return out
+
+
+# ---------------------------------------------------------------------------
+# (i) pre-training
+# ---------------------------------------------------------------------------
+
+
+def pretrain_config(setup, out_dir, seed, **kw):
+    """The canonical recipe (scripts/pretrain.bash) at PT_BATCH: the
+    three tasks round-robin, --visualLosses obj, --vis_mask_predict,
+    clustering on the 8x8 grid, bf16, lr PT_LR."""
+    from xlxmert_tpu_torch.core.config import TrainConfig
+
+    cfg = setup.cfg
+    return TrainConfig(batch_size=PT_BATCH, max_text_length=PT_TEXT,
+                       grid_size=8, lr=PT_LR, epochs=1, output=out_dir,
+                       seed=seed, clustering=True,
+                       num_clusters=cfg.num_clusters,
+                       feat_dim=cfg.visual_feat_dim, visual_losses="obj",
+                       vis_mask_predict=True, **kw)
+
+
+def pretrain_data(setup, tcfg, seed):
+    """In-memory PretrainDatasets over Setup's questions as captions, each
+    on one of IMAGES images with random cluster ids on the 8x8 grid:
+    PT_STEPS batches to train on and one to evaluate."""
+    import numpy as np
+
+    from xlxmert_tpu_torch.data.datasets import PretrainDataset
+    from xlxmert_tpu_torch.data.io import ClusterMap
+
+    rng = np.random.RandomState(seed + 2)
+    clusters = ClusterMap({f"img_{i}": rng.randint(0, tcfg.num_clusters, 64)
+                           for i in range(IMAGES)})
+    corpus = [{"img_id": q["img_id"], "img_source": "mscoco_train",
+               "sentf": {"mscoco": [q["sent"]]}} for q in setup.questions]
+    n_train = PT_STEPS * PT_BATCH
+    kw = dict(max_text_length=tcfg.max_text_length,
+              grid_size=tcfg.grid_size,
+              vis_mask_sources={"mscoco", "vg"}
+              if tcfg.vis_mask_COCOVG_only else None)
+    return (PretrainDataset(corpus[:n_train], setup.tokenizer, clusters,
+                            **kw),
+            PretrainDataset(corpus[n_train:n_train + PT_BATCH],
+                            setup.tokenizer, clusters, **kw))
+
+
+def pretrain_once(torch, setup, kernels, route, data, params, centroids,
+                  args, device, log):
+    """cli/pretrain.pretrain() for one epoch of PT_STEPS steps on the
+    training attention `route`, every kernel's count set to 0 just
+    before. Checks each step's launches, the evaluation's (none: the
+    exact model) and that every loss is finite, and reads the epoch
+    checkpoint back. Returns (engine, state, numbers)."""
+    from xlxmert_tpu_torch.cli.pretrain import pretrain
+    from xlxmert_tpu_torch.core.checkpoint import (
+        epoch_ckpt_name, load_any_checkpoint,
+    )
+    from xlxmert_tpu_torch.core.metrics import RunLogger
+    from xlxmert_tpu_torch.tasks.pretrain import PretrainEngine
+
+    train_ds, valid_ds = data
+    with tempfile.TemporaryDirectory() as out_dir:
+        tcfg = pretrain_config(setup, out_dir, args.seed)
+        eng = PretrainEngine(tcfg, setup.cfg, total_steps=PT_STEPS,
+                             train_attention=route, device=device)
+        state = eng.create_state(args.seed, params)
+        steps, last = [], {}
+
+        def counts():
+            return {k.name: k.launches for k in kernels}
+
+        def on_step(i, task, metrics):
+            loss = float(metrics["total_loss"])      # waits for the step
+            now, seen = time.time(), counts()
+            peak = 0
+            if device == "cuda":
+                peak = torch.cuda.max_memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            steps.append({
+                "task": task, "loss": loss,
+                "grad_norm": float(metrics["grad_norm"]),
+                "ms": (now - last["t"]) * 1e3,
+                "launches": {k: n - last["n"][k] for k, n in seen.items()},
+                "peak_bytes": peak})
+            last.update(t=time.time(), n=counts())
+
+        for k in kernels:
+            k.launches = 0
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        last.update(t=time.time(), n=counts())
+        logger = RunLogger(out_dir, tcfg, use_tensorboard=False)
+        valid = pretrain(eng, state, train_ds, valid_ds, tcfg, centroids,
+                         logger, on_step=on_step)
+        logger.close()
+        launches = counts()
+        saved = load_any_checkpoint(os.path.join(out_dir,
+                                                 epoch_ckpt_name(1)))
+    if [s["task"] for s in steps] != [PT_TASKS[i % 3]
+                                      for i in range(PT_STEPS)]:
+        fail(f"pretrain {route}: tasks {[s['task'] for s in steps]}")
+    for i, s in enumerate(steps):
+        if not math.isfinite(s["loss"]) or not math.isfinite(s["grad_norm"]):
+            fail(f"pretrain {route}: step {i} ({s['task']}) loss "
+                 f"{s['loss']}, gradient norm {s['grad_norm']}")
+        check_launches(f"pretrain {route}", s["launches"], 1)
+    check_launches("pretrain xla", {k: n - sum(s["launches"][k]
+                                               for s in steps)
+                                    for k, n in launches.items()}, 1)
+    if not all(math.isfinite(v) for v in valid.values()) or len(valid) != 3:
+        fail(f"pretrain {route}: evaluation {valid}")
+    want, got = _flat(state.params()), _flat(saved)
+    if want.keys() != got.keys() or any(not (want[k] == got[k]).all()
+                                        for k in want):
+        fail(f"pretrain {route}: {epoch_ckpt_name(1)} does not read back as "
+             "the trained parameters")
+    per_task = {}
+    for task in PT_TASKS:
+        mine = [s for s in steps if s["task"] == task]
+        after = [s["ms"] for s in mine[1:]]
+        ms = sum(after) / len(after)
+        per_task[task] = {"step_ms": ms,
+                          "examples_per_s": PT_BATCH * 1e3 / ms,
+                          "first_ms": mine[0]["ms"],
+                          "peak_bytes": max(s["peak_bytes"] for s in mine),
+                          "launches_per_step": mine[-1]["launches"]}
+        log(f"  pretrain {route} {task}: step {ms:.1f} ms after the first "
+            f"({PT_BATCH * 1e3 / ms:.1f} examples/s; first "
+            f"{mine[0]['ms']:.1f} ms), peak device memory "
+            f"{per_task[task]['peak_bytes'] / 2**30:.2f} GiB, launches a "
+            "step: " + (", ".join(f"{k} {n}" for k, n in
+                                  mine[-1]["launches"].items() if n)
+                        or "none"))
+    log(f"  pretrain {route}: losses " + " ".join(
+        f"{s['task']} {s['loss']:.4f}" for s in steps)
+        + "; valid " + ", ".join(f"{k} {v:.4f}" for k, v in valid.items()))
+    return eng, state, {"route": route, "steps": steps, "valid": valid,
+                        "tasks": per_task, "launches": launches,
+                        "checkpoint_read_back": True}
+
+
+def pretrain_step_parts(torch, eng, state, batch, centroids, device,
+                        n=PT_PARTS):
+    """Where a pre-training step's wall time goes, per task: the batch to
+    the device, forward and backward, the gradient norm, the optimizer
+    update, each ended by a synchronize and averaged over n steps; on the
+    card also the busy time of one train_step (torch.profiler)."""
+    from xlxmert_tpu_torch.core.optim import global_norm
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    out = {}
+    for task in PT_TASKS:
+        parts = dict.fromkeys(STEP_PARTS, 0.0)
+        for _ in range(n):
+            sync()
+            t = time.perf_counter()
+            b = eng.place(batch)
+            sync()
+            parts["place"] += time.perf_counter() - t
+            t = time.perf_counter()
+            _, grads = eng.loss_and_grads(state.model, b, task, centroids,
+                                          state.generator)
+            sync()
+            parts["forward_backward"] += time.perf_counter() - t
+            t = time.perf_counter()
+            used = {k: g for k, g in grads.items() if g is not None}
+            global_norm(used.values())
+            sync()
+            parts["grad_norm"] += time.perf_counter() - t
+            t = time.perf_counter()
+            state.opt.step(grads, used=set(used))
+            sync()
+            parts["update"] += time.perf_counter() - t
+        res = {k: v * 1e3 / n for k, v in parts.items()}
+        res["device_busy_ms"] = res["device_kernels"] = None
+        if device == "cuda":
+            from torch.autograd import DeviceType
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                eng.train_step(state, batch, task, centroids)
+                sync()
+            on_card = [e for e in prof.events()
+                       if e.device_type == DeviceType.CUDA]
+            res["device_kernels"] = len(on_card)
+            if on_card:
+                res["device_busy_ms"] = sum(e.time_range.elapsed_us()
+                                            for e in on_card) / 1e3
+        out[task] = res
+    return out
+
+
+def host_masked(batch, seed, vocab_size):
+    """`batch` with injected masks (masked_word_id + word_label at 15 % of
+    the words, never the first or last column or a pad; vis_mask at
+    30 % of the cells, at least one): both sides of a comparison read
+    the same masks."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    word = batch["word_id"]
+    B, L = word.shape
+    pos = (rng.rand(B, L) < 0.15) & (word > 0)
+    pos[:, 0] = pos[:, -1] = False
+    pos[:, 1] |= word[:, 1] > 0
+    masked, label = word.copy(), np.full_like(word, -1)
+    label[pos], masked[pos] = word[pos], min(103, vocab_size - 1)
+    vis = (rng.rand(B, 64) < 0.3).astype(np.float32)
+    vis[:, 0] = 1
+    return {**batch, "masked_word_id": masked, "word_label": label,
+            "vis_mask": vis}
+
+
+def pretrain_step_card_vs_cpu(torch, setup, batch, params, centroids, args,
+                              device, log):
+    """Each task's dropout-free step (losses and gradients) from the same
+    weights and injected masks on `device` through the kernel route and
+    on the CPU through its plain version, in fp32 and bf16, held to
+    STEP_BARS; the parameters without a gradient must be the same."""
+    from xlxmert_tpu_torch.ops import attention
+    from xlxmert_tpu_torch.tasks.pretrain import PretrainEngine
+
+    mcfg = setup.cfg.replace(hidden_dropout_prob=0.0,
+                             attention_probs_dropout_prob=0.0)
+    out = {}
+    for dt, (rel_bar, cos_bar) in STEP_BARS.items():
+        res = {}
+        for dev in (device, "cpu"):
+            tcfg = pretrain_config(setup, "unused", args.seed,
+                                   mixed_precision=dt == "bfloat16")
+            eng = PretrainEngine(tcfg, mcfg, total_steps=1,
+                                 train_attention="pallas_blhd", device=dev)
+            state = eng.create_state(args.seed, params)
+            placed, cent = eng.place(batch), centroids.to(dev)
+            res[dev] = {}
+            for task in PT_TASKS:
+                before = attention.TRAIN_KERNEL.launches
+                t0 = time.time()
+                losses, grads = eng.loss_and_grads(state.model, placed, task,
+                                                   cent, state.generator)
+                res[dev][task] = (
+                    float(losses["total_loss"]),
+                    {n: g.detach().double().cpu() for n, g in grads.items()
+                     if g is not None},
+                    attention.TRAIN_KERNEL.launches - before,
+                    time.time() - t0)
+                del grads
+            del eng, state
+        out[dt] = {}
+        for task in PT_TASKS:
+            (lc, gc, nc, _), (lh, gh, _, th) = (res[device][task],
+                                                res["cpu"][task])
+            want = PER_FORWARD["pretrain pallas_blhd"]["mha_blhd_train"]
+            if device == "cuda" and nc != want:
+                fail(f"pretrain card-vs-CPU {task} {dt}: {nc} "
+                     f"mha_blhd_train launches, expected {want}")
+            if gc.keys() != gh.keys() or not gc:
+                fail(f"pretrain card-vs-CPU {task} {dt}: the two sides "
+                     "differ in which parameters get a gradient")
+            cos = grad_cosine(gc, gh)
+            rel = abs(lc - lh) / max(abs(lh), 1e-12)
+            out[dt][task] = {"loss_card": lc, "loss_cpu": lh,
+                             "loss_rel_diff": rel, "grad_cosine": cos,
+                             "with_gradient": len(gc), "launches": nc,
+                             "cpu_s": th, "bars": [rel_bar, cos_bar]}
+            log(f"  card vs CPU, {task} on {PT_CHECK} examples, {dt}: loss "
+                f"{lc:.6f} vs {lh:.6f} (relative {rel:.2e}, bar "
+                f"{rel_bar:g}), gradient cosine {cos:.7f} (bar {cos_bar}), "
+                f"{len(gc)} parameters with a gradient on both; CPU step "
+                f"{th:.1f}s")
+            if not (math.isfinite(lc) and rel < rel_bar and cos > cos_bar):
+                fail(f"pretrain card-vs-CPU {task} {dt}: loss relative "
+                     f"difference {rel} (< {rel_bar}), gradient cosine "
+                     f"{cos} (> {cos_bar})")
+    return out
+
+
+def run_pretrain_path(torch, args, kernels, log, cfg=None, device="cuda",
+                      setup=None):
+    """Phase (i): pre-training through cli/pretrain.pretrain() on
+    in-memory datasets, both training attention routes, the step's
+    parts, and the card-vs-CPU steps. With device="cpu" and a narrow cfg
+    it runs on the CPU, as its test does. Returns its numbers."""
+    from xlxmert_tpu_torch.tasks.pretrain import PretrainEngine
+
+    setup = setup or Setup(torch, args, log, cfg, device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tcfg = pretrain_config(setup, "unused", args.seed)
+    data = pretrain_data(setup, tcfg, args.seed)
+    gen = torch.Generator(device=device).manual_seed(args.seed + 3)
+    centroids = torch.randn(tcfg.num_clusters, setup.cfg.visual_feat_dim,
+                            generator=gen, device=device)
+    params = PretrainEngine(tcfg, setup.cfg, device="cpu").init_params(
+        args.seed)
+    out = {"routes": {}}
+    launches = {k.name: 0 for k in kernels}
+    for route in TRAIN_ROUTES:
+        eng, state, res = pretrain_once(torch, setup, kernels, route, data,
+                                        params, centroids, args, device, log)
+        for k, n in res["launches"].items():
+            launches[k] += n
+        if route == "pallas_blhd":
+            batch = next(iter(data[0].batches(PT_BATCH)))
+            out["step_parts"] = parts = pretrain_step_parts(
+                torch, eng, state, batch, centroids, device)
+            for task, p in parts.items():
+                busy = ("not measured" if p["device_busy_ms"] is None else
+                        f"{p['device_busy_ms']:.1f} ms in "
+                        f"{p['device_kernels']} kernels and copies")
+                log(f"  a pallas_blhd {task} step's parts (each ended by a "
+                    "synchronize): " + ", ".join(
+                        f"{k} {p[k]:.1f} ms" for k in STEP_PARTS)
+                    + f"; the card busy {busy} of one step (torch.profiler)")
+        out["routes"][route] = res
+        del eng, state
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    check = host_masked(next(iter(data[0].batches(PT_CHECK))), args.seed,
+                        setup.cfg.vocab_size)
+    out["card_vs_cpu"] = pretrain_step_card_vs_cpu(
+        torch, setup, check, params, centroids, args, device, log)
+    out["launches"] = launches
+    return out
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     try:
@@ -1547,7 +2083,7 @@ def main(argv=None) -> int:
         f"CUDA {torch.version.cuda}")
     kernels = [attention.KERNEL, int8_matmul.KERNEL, ffn.KERNEL,
                attention.FUSED_MHA_KERNEL, fused_block.KERNEL,
-               attention.TRAIN_KERNEL]
+               attention.TRAIN_KERNEL, attention.HBATCH_KERNEL]
     build_s = _build.build_all(kernels, verbose=True)
     log(f"    kernels built in {build_s:.1f}s (parallel nvcc)")
     for k in kernels:
@@ -1572,7 +2108,8 @@ def main(argv=None) -> int:
             "fused_block": check_fused_block(torch, fused_block, int8_matmul,
                                              quant, cfg, rng, log),
             "mha_blhd_train": check_train_attention(torch, F, attention, cfg,
-                                                    rng, log)}
+                                                    rng, log),
+            "mha_hbatch": check_hbatch(torch, F, attention, cfg, rng, log)}
     times = {}
     for name, kernel_rows in rows.items():
         launches_per_kind(name, kernel_rows)
@@ -1584,8 +2121,11 @@ def main(argv=None) -> int:
             composed = "" if t["composed_ms"] is None else \
                 f"  composed {t['composed_ms']:.4f}"
             if t["recompute_ms"] is not None:
-                composed += (f"  backward recompute {t['recompute_ms']:.4f}"
-                             f"  kernel back to back {t['enqueue_ms']:.4f}")
+                composed += f"  backward recompute {t['recompute_ms']:.4f}"
+            if t["b1_ms"] is not None:
+                composed += f"  mha_blhd {t['b1_ms']:.4f}"
+            if t["enqueue_ms"] is not None:
+                composed += f"  kernel back to back {t['enqueue_ms']:.4f}"
             log(f"    {kind:17} kernel {t['ms']:.4f}  plain "
                 f"{t['plain_ms']:.4f}  library {lib}{composed}  bound "
                 f"{t['bound_ms']:.4f} ({t['bound_by']})")
@@ -1614,8 +2154,16 @@ def main(argv=None) -> int:
         f"times), the backward's einsum recompute {step['recompute_ms']:.4f}"
         f" ms ({ft['recompute_share']:.2%}); xla step "
         f"{ft['routes']['xla']['step_ms']:.1f} ms")
+    log(f"(h) attention layout: the int8 engine at full width, B={BATCH}, "
+        f"text {LAYOUT_TEXT}, through {', '.join(LAYOUT_VARIANTS)} "
+        "(scripts/drive_attention_layout_torch.py)")
+    layout = run_layout_path(torch, args, kernels, log)
+    log(f"(i) pre-training: full width, {cfg.num_clusters} clusters, B="
+        f"{PT_BATCH}, text {PT_TEXT}, {PT_STEPS} round-robin steps a route, "
+        "bf16 mixed precision, dropout 0.1, random weights")
+    pt = run_pretrain_path(torch, args, kernels, log, setup=setup)
     paths = {"int8": path, **bf16_paths, "int8+fused_block": fused_path,
-             "finetune": ft}
+             "finetune": ft, "layout": layout, "pretrain": pt}
 
     # (d) the kernels line and the device line: times per serving forward
     # drawn from VQA_LENGTH_MIX (mha_blhd_train: per VQA training step);
@@ -1631,10 +2179,13 @@ def main(argv=None) -> int:
                "fused_block": ("xlxmert_tpu_torch/csrc/fused_block.cu",
                                "xlxmert_tpu/ops/fused_block.py:135"),
                "mha_blhd_train": ("xlxmert_tpu_torch/csrc/mha_blhd_train.cu",
-                                  "xlxmert_tpu/ops/attention.py:354")}
+                                  "xlxmert_tpu/ops/attention.py:354"),
+               "mha_hbatch": ("xlxmert_tpu_torch/csrc/mha_hbatch.cu",
+                              "scripts/drive_attention_layout.py:183")}
+    per = {"mha_blhd_train": "ft vqa", "mha_hbatch": f"layout L={LAYOUT_TEXT}"}
     summary = []
     for name, (src, replaces) in sources.items():
-        t = times[name]["ft vqa" if name == "mha_blhd_train" else "mix"]
+        t = times[name][per.get(name, "mix")]
         summary.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
@@ -1657,8 +2208,10 @@ def main(argv=None) -> int:
                            "B=256, weighted by VQA_LENGTH_MIX ('mix' in "
                            "'per_forward'), mha_blhd_train's per VQA "
                            "training step at B=32 ('ft vqa'; library: SDPA "
-                           "with dropout_p, its own mask); launches are "
-                           "summed over the path runs in 'paths'"},
+                           "with dropout_p, its own mask), mha_hbatch's per "
+                           "int8 forward of the layout driver at B=256, "
+                           "L=20; launches are summed over the path runs in "
+                           "'paths'"},
                   f, indent=1)
     log(f"(d) per-shape numbers in {args.out}; kernel times per serving "
         f"forward at B={BATCH}, weighted by VQA_LENGTH_MIX; launches per "

@@ -89,7 +89,26 @@ def test_kernel_cases_cover_every_launch_of_each_full_width_forward():
                         (8, "float32", False), (8, "bfloat16", False)):
         assert {(lq, lk) for B, lq, lk, _, d, m, uses in train
                 if uses and (B, d, m) == (b, dt, mask)} == shapes
-    assert len(train) == 48 and len({c[:-1] for c in train}) == 48
+    # pre-training: its B=256 steps, and its check steps at the
+    # fine-tuning check's shapes
+    for b, dt, mask, kind in ((256, "bfloat16", True, "pt step"),
+                              (8, "float32", False, "pt check float32"),
+                              (8, "bfloat16", False, "pt check bfloat16")):
+        assert {(lq, lk) for B, lq, lk, _, d, m, uses in train
+                if kind in uses and (B, d, m) == (b, dt, mask)} == shapes
+    assert len(train) == 64 and len({c[:-1] for c in train}) == 64
+    # the layout driver's hbatch forwards: 34 launches at B=256, L=20; the
+    # calibration batch's shapes are checked too, with no path use
+    hb = list(chip_smoke.hbatch_cases(cfg, chip_smoke.BATCH))
+    for kind in chip_smoke.KINDS["mha_hbatch"]:
+        assert sum(c[-1].get(kind, 0) for c in hb) \
+            == per["layout hbatch"]["mha_hbatch"] == 34
+    assert {(b, lq, lk, bias) for b, lq, lk, bias, uses in hb if uses} == {
+        (256, 20, 20, True), (256, 64, 64, False), (256, 20, 64, False),
+        (256, 64, 20, True)}
+    assert {(b, lq, lk) for b, lq, lk, _, _ in hb} == {
+        (b, lq, lk) for b in (256, 8) for lq, lk in shapes}
+    assert len(hb) == 16
 
 
 def test_path_phase_launches_exactly_the_kernel_phase_cases(monkeypatch):
@@ -437,7 +456,8 @@ def test_finetune_phase_launches_exactly_the_kernel_phase_cases(monkeypatch):
     want = Counter()
     for *case, uses in chip_smoke.train_attention_cases(cfg):
         for kind, n in uses.items():
-            want[tuple(case)] += n * steps[kind]
+            # pre-training's kinds ("pt ...") run in phase (i)
+            want[tuple(case)] += n * steps.get(kind, 0)
     assert calls == want
     # int8 evaluations: VQA calibrates on its 2 batches and serves them,
     # NLVR2 on its 1
@@ -455,3 +475,92 @@ def test_finetune_phase_launches_exactly_the_kernel_phase_cases(monkeypatch):
             want["int8_dense", M, K, N, static] += \
                 n * dense_forwards.get(kind, 0)
     assert evals == want
+
+
+SMALL = dict(vocab_size=4100, hidden_size=128, num_attention_heads=2,
+             intermediate_size=96, l_layers=2, x_layers=1, r_layers=1,
+             visual_feat_dim=16, num_clusters=50)
+
+
+def test_layout_phase_launches_exactly_the_kernel_phase_cases(monkeypatch):
+    """Phase (h) on the CPU at a small width (fewer chained forwards):
+    every variant answers as base, and mha_hbatch is called at exactly
+    the kernel phase's (shape, count) cases in the hbatch variant's
+    forwards, and nowhere else."""
+    from xlxmert_tpu_torch.ops import attention
+
+    cfg = LxmertConfig(**SMALL)
+    monkeypatch.setattr(chip_smoke, "LAYOUT_K", 2)
+    monkeypatch.setattr(chip_smoke, "LAYOUT_REPEATS", 1)
+    calls = Counter()
+    orig = attention.mha_hbatch
+
+    def rec(q, k, v, bias, n_heads):
+        calls[q.shape[0], q.shape[1], k.shape[1], bias is not None] += 1
+        return orig(q, k, v, bias, n_heads)
+
+    monkeypatch.setattr(attention, "mha_hbatch", rec)
+    args = chip_smoke.parse_args(["--seed", "7"])
+    out = chip_smoke.run_layout_path(torch, args, [], lambda m: None,
+                                     cfg=cfg, device="cpu")
+    assert list(out["variants"]) == list(chip_smoke.LAYOUT_VARIANTS)
+    forwards = 1 + 2 * (1 + 1)
+    for name, r in out["variants"].items():
+        assert r["forwards"] == forwards and r["qps"] > 0
+        if name != "base":
+            assert r["argmax_agree"] == 1.0
+    want = Counter()
+    for b, lq, lk, bias, uses in chip_smoke.hbatch_cases(cfg,
+                                                         chip_smoke.BATCH):
+        for n in uses.values():
+            want[b, lq, lk, bias] += n * forwards
+    assert calls == want and sum(calls.values()) == forwards * (
+        cfg.l_layers + cfg.r_layers + 4 * cfg.x_layers)
+
+
+def test_pretrain_phase_launches_exactly_the_kernel_phase_cases(monkeypatch):
+    """Phase (i) on the CPU at a small width: both routes pre-train
+    PT_STEPS round-robin steps, evaluate and save, the step's parts are
+    timed, and each task's card-vs-CPU step agrees (both sides on the CPU
+    here). The training attention is called at exactly the kernel phase's
+    (shape, type, mask) cases: 34 a full-width step, only on the
+    "pallas_blhd" route."""
+    cfg = LxmertConfig(**SMALL)
+    calls = Counter()
+    orig = lxmert.mha_blhd_train
+
+    def rec(q, k, v, bias, mask, n_heads, *a, **kw):
+        dt = str(q.dtype).replace("torch.", "")
+        calls[q.shape[0], q.shape[1], k.shape[1], bias is not None, dt,
+              mask is not None] += 1
+        return orig(q, k, v, bias, mask, n_heads, *a, **kw)
+
+    monkeypatch.setattr(lxmert, "mha_blhd_train", rec)
+    args = chip_smoke.parse_args(["--seed", "8"])
+    out = chip_smoke.run_pretrain_path(torch, args, [], lambda m: None,
+                                       cfg=cfg, device="cpu")
+    for route, res in out["routes"].items():
+        assert [s["task"] for s in res["steps"]] == [
+            chip_smoke.PT_TASKS[i % 3] for i in range(chip_smoke.PT_STEPS)]
+        assert all(math.isfinite(s["loss"]) for s in res["steps"])
+        assert set(res["tasks"]) == set(chip_smoke.PT_TASKS)
+        assert res["checkpoint_read_back"] and len(res["valid"]) == 3
+    assert set(out["step_parts"]) == set(chip_smoke.PT_TASKS)
+    for dt, tasks in out["card_vs_cpu"].items():
+        for c in tasks.values():
+            assert c["loss_rel_diff"] == 0.0 and c["grad_cosine"] > 0.9999999
+    # each task's check leaves other parameters without a gradient
+    counts = {t: c["with_gradient"]
+              for t, c in out["card_vs_cpu"]["float32"].items()}
+    assert len(set(counts.values())) == 3
+    # steps of each kind: the pallas route's steps and the timed parts;
+    # each task of the check step on "card" and CPU in each type
+    steps = {"pt step": chip_smoke.PT_STEPS
+             + len(chip_smoke.PT_TASKS) * chip_smoke.PT_PARTS,
+             "pt check float32": 2 * len(chip_smoke.PT_TASKS),
+             "pt check bfloat16": 2 * len(chip_smoke.PT_TASKS)}
+    want = Counter()
+    for *case, uses in chip_smoke.train_attention_cases(cfg):
+        for kind, n in uses.items():
+            want[tuple(case)] += n * steps.get(kind, 0)
+    assert calls == want

@@ -75,6 +75,54 @@ def test_mha_blhd_kernel_rejects_what_it_cannot_take(cuda):
         attention.mha_blhd(q, q, q, torch.zeros(2, 8, device=cuda), 12)
 
 
+# the attention-layout driver's shapes at L=20 (the text keys carry the
+# padding bias, the visual keys none), the other bucket lengths, and
+# ragged ones; B=256 (the driver's batch) and 8 (calibration's)
+HBATCH_SHAPES = [(20, 20), (64, 64), (20, 64), (64, 20), (8, 8), (12, 64),
+                 (64, 16), (7, 33), (33, 7), (1, 1)]
+
+
+@pytest.mark.parametrize("Lq,Lk", HBATCH_SHAPES)
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("B", [256, 8])
+def test_mha_hbatch_kernel_matches_plain(cuda, Lq, Lk, with_bias, B):
+    """bf16 out within 2e-2 of the plain version (the softmax sum and
+    both products add in another order: one bf16 step at |out| ~ 2), and
+    of mha_blhd, which computes the same function."""
+    rng = np.random.RandomState(Lq * 100 + Lk + B)
+    H = 12
+    q, k, v = _qkv(rng, B, Lq, Lk, H * 64, torch.bfloat16, cuda)
+    bias = None
+    if with_bias:
+        m = (rng.rand(B, Lk) > 0.3).astype(np.float32)
+        m[:, 0] = 1
+        bias = ((1.0 - torch.from_numpy(m)) * -1e9)[:, None, None, :].to(
+            cuda, torch.bfloat16)
+    before = attention.HBATCH_KERNEL.launches
+    out = attention.mha_hbatch(q, k, v, bias, H)
+    torch.cuda.synchronize()
+    assert attention.HBATCH_KERNEL.launches == before + 1
+    ref = attention.mha_hbatch_reference(q, k, v, bias, H)
+    assert out.shape == ref.shape == (B, Lq, H * 64)
+    assert out.dtype == torch.bfloat16 and out.is_contiguous()
+    assert torch.isfinite(out).all()
+    for other in (ref, attention.mha_blhd(q, k, v, bias, H, fast=True)):
+        err = (out.float() - other.float()).abs().max().item()
+        assert err <= 2e-2, err
+
+
+def test_mha_hbatch_kernel_rejects_what_it_cannot_take(cuda):
+    q = torch.zeros(2, 8, 768, device=cuda, dtype=torch.float32)
+    with pytest.raises(ValueError, match="bf16"):
+        attention.mha_hbatch(q, q, q, None, 12)
+    q = torch.zeros(2, 8, 16 * 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="heads"):
+        attention.mha_hbatch(q, q, q, None, 16)
+    q = torch.zeros(2, 65, 768, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="exceed"):
+        attention.mha_hbatch(q, q, q, None, 12)
+
+
 # the training path's shapes (text 20, visual 64, both cross directions)
 # with the bias it gives each (text keys are masked), and a ragged one
 TRAIN_SHAPES = [(20, 20, True), (64, 64, False), (20, 64, False),
@@ -339,3 +387,80 @@ def test_fused_block_kernel_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="768"):
         fused_block.fused_block(small, small, w["out_w"], g1, b1,
                                 has_ffn=False)
+
+
+def _pretrain_engine(dev, bf16):
+    from xlxmert_tpu_torch.core.config import LxmertConfig, TrainConfig
+    from xlxmert_tpu_torch.tasks.pretrain import PretrainEngine
+
+    mcfg = LxmertConfig(vocab_size=200, hidden_size=128,
+                        num_attention_heads=2, intermediate_size=256,
+                        l_layers=2, x_layers=2, r_layers=1,
+                        visual_feat_dim=32, num_clusters=50,
+                        hidden_dropout_prob=0.0,
+                        attention_probs_dropout_prob=0.0)
+    tcfg = TrainConfig(batch_size=8, max_text_length=12, grid_size=8,
+                       num_clusters=50, feat_dim=32, lr=1e-3,
+                       mixed_precision=bf16)
+    return PretrainEngine(tcfg, mcfg, total_steps=10,
+                          train_attention="pallas_blhd", device=dev)
+
+
+def _pretrain_batch(rng):
+    word = rng.randint(1, 200, (8, 12))
+    word[0, 9:] = 0
+    pos = (rng.rand(8, 12) < 0.15) & (word > 0)
+    pos[:, 1] = True
+    masked, label = word.copy(), np.full_like(word, -1)
+    label[pos], masked[pos] = word[pos], 103
+    vis = (rng.rand(8, 64) < 0.3).astype(np.float32)
+    vis[:, 0] = 1
+    return {"word_id": word, "masked_word_id": masked, "word_label": label,
+            "other_word_id": rng.randint(1, 200, (8, 12)),
+            "matched_label": rng.randint(0, 2, 8),
+            "cluster_id": rng.randint(0, 50, (8, 64)), "vis_mask": vis}
+
+
+@pytest.mark.parametrize("bf16,rel,cos_bar", [(False, 1e-4, 0.9999),
+                                              (True, 2e-2, 0.99)])
+def test_pretrain_step_matches_the_cpu(cuda, bf16, rel, cos_bar):
+    """Each task's dropout-free step on the card (kernel route) against
+    the CPU (plain version) from the same weights and injected masks:
+    the loss, the gradients by cosine and the parameters left without a
+    gradient; then one optimizer step per task on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.RandomState(0)
+    batch = _pretrain_batch(rng)
+    cent = torch.from_numpy(rng.randn(50, 32).astype(np.float32))
+    params = _pretrain_engine("cpu", bf16).init_params(0)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        eng = _pretrain_engine(dev, bf16)
+        state = eng.create_state(0, params)
+        res[dev] = {}
+        for task in ("vis_mask", "word_mask", "matched"):
+            before = attention.TRAIN_KERNEL.launches
+            losses, grads = eng.loss_and_grads(
+                state.model, eng.place(batch), task, cent.to(dev),
+                state.generator)
+            assert attention.TRAIN_KERNEL.launches - before == (
+                2 + 1 + 4 * 2 if dev == "cuda" else 0)
+            res[dev][task] = (float(losses["total_loss"]),
+                              {n: g.double().cpu() for n, g in grads.items()
+                               if g is not None})
+        if dev == "cuda":
+            for task in ("vis_mask", "word_mask", "matched"):
+                m = eng.train_step(state, batch, task, cent.to(dev))
+                assert np.isfinite(float(m["total_loss"]))
+            assert state.opt.count["mask_feat"] == 1
+            assert state.opt.count["bert.pooler.dense.weight"] == 1
+            assert state.opt.count[
+                "bert.embeddings.word_embeddings.weight"] == 3
+    for task, (lc, gc) in res["cuda"].items():
+        lh, gh = res["cpu"][task]
+        assert gc.keys() == gh.keys()
+        assert abs(lc - lh) <= rel * abs(lh), (task, lc, lh)
+        dot = sum(float((gc[n] * gh[n]).sum()) for n in gc)
+        norm = np.sqrt(sum(float((gc[n] ** 2).sum()) for n in gc)
+                       * sum(float((gh[n] ** 2).sum()) for n in gh))
+        assert dot / norm > cos_bar, (task, dot / norm)

@@ -12,9 +12,17 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "xlxmert_tpu")
 
 
+def _port_scripts():
+    """chip_smoke.py and the port's scripts (scripts/*_torch*.py)."""
+    scripts = os.path.join(ROOT, "scripts")
+    return [os.path.join(ROOT, "chip_smoke.py")] + [
+        os.path.join(scripts, n) for n in sorted(os.listdir(scripts))
+        if "_torch" in n and n.endswith(".py")]
+
+
 def _port_files():
     pkg = os.path.join(ROOT, "xlxmert_tpu_torch")
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = _port_scripts()
     for d, _, names in os.walk(pkg):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -35,6 +43,8 @@ def _imported_roots(path):
 def test_port_imports_no_jax_flax_or_the_jax_package():
     files = _port_files()
     assert len(files) > 15
+    assert os.path.join(ROOT, "scripts", "drive_attention_layout_torch.py") \
+        in files
     bad = {(os.path.relpath(f, ROOT), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN}
     assert not bad, sorted(bad)
@@ -45,7 +55,7 @@ def test_every_port_module_imports():
 
     for f in _port_files():
         rel = os.path.relpath(f, ROOT)
-        if rel == "chip_smoke.py":
+        if f in _port_scripts():
             continue
         importlib.import_module(rel[:-3].replace(os.sep, ".").replace(
             ".__init__", ""))
@@ -89,6 +99,13 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(no_cuda,
               "x", "--questions", "x", "--output", "x"])
     qp = engine.prepare_params(bert, cfg, device="cpu")
     assert qp.embeddings.word.device.type == "cpu"
+    from xlxmert_tpu_torch.core.config import TrainConfig
+    from xlxmert_tpu_torch.tasks.pretrain import PretrainEngine
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PretrainEngine(TrainConfig(), cfg)
+    assert PretrainEngine(TrainConfig(), cfg, device="cpu").device.type \
+        == "cpu"
 
 
 def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
@@ -108,6 +125,14 @@ def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
     with pytest.raises(ValueError, match="unsupported device"):
         attention.mha_blhd(q.to("meta"), q.to("meta"), q.to("meta"), None,
                            2)
+    qb = q.to(torch.bfloat16)
+    before = attention.HBATCH_KERNEL.launches
+    assert torch.equal(attention.mha_hbatch(qb, qb, qb, None, 2),
+                       attention.mha_hbatch_reference(qb, qb, qb, None, 2))
+    assert attention.HBATCH_KERNEL.launches == before
+    with pytest.raises(ValueError, match="unsupported device"):
+        attention.mha_hbatch(qb.to("meta"), qb.to("meta"), qb.to("meta"),
+                             None, 2)
     fw = fused_block.fused_weight(with_activation_scale(
         quantize_weight(np.ones((32, 32), np.float32)), 1.0))
     x, g, b = q[0].to(torch.bfloat16), torch.ones(32), torch.zeros(32)

@@ -5,17 +5,17 @@ plus `--device`.
 Accepted without effect, as in the JAX CLI: `--multiGPU`,
 `--distributed`, `--numWorkers`, `--tqdm`, and here also `--rng_impl`
 (a JAX PRNG choice; the port draws dropout from a torch.Generator).
-`--profile` raises until profiling is ported. The pre-training flags
-(task mix, masking, clustering, the h5 overrides, `--bert_weights`,
-`--save_full_state`) are parsed for the shared surface; fine-tuning
-reads none of them, as in the JAX package.
+`--profile` and `--save_full_state` raise until profiling and the
+full-state checkpoint are ported. Fine-tuning reads none of the
+pre-training flags (task mix, masking, clustering, the h5 overrides,
+`--bert_weights`), as in the JAX package.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 
-from xlxmert_tpu_torch.core.config import FinetuneConfig
+from xlxmert_tpu_torch.core.config import FinetuneConfig, TrainConfig
 
 
 def base_parser() -> argparse.ArgumentParser:
@@ -48,10 +48,8 @@ def base_parser() -> argparse.ArgumentParser:
                    "environment cannot download from the HF hub")
     p.add_argument("--save_full_state", action="store_true",
                    help="also save Epoch%%02d_FULL.msgpack (params + "
-                   "optimizer + step) for exact resume; --load of a "
-                   "_FULL checkpoint restores optimizer moments and the "
-                   "LR-schedule position (an extension; the "
-                   "reference rebuilds the optimizer on resume)")
+                   "optimizer + step) for an exact resume (not ported "
+                   "yet: raises)")
     p.add_argument("--comment", default="")
     # model shape (param.py:107-112)
     p.add_argument("--llayers", type=int, default=9)
@@ -143,7 +141,16 @@ def base_parser() -> argparse.ArgumentParser:
     return p
 
 
+_TRAIN_FIELDS = {f.name for f in dataclasses.fields(TrainConfig)}
 _FT_FIELDS = {f.name for f in dataclasses.fields(FinetuneConfig)}
+
+
+def to_train_config(ns: argparse.Namespace) -> TrainConfig:
+    d = {k: v for k, v in vars(ns).items()
+         if k in _TRAIN_FIELDS and v is not None}
+    # bf16 compute is the default; --fp32 opts out (parity/debugging)
+    d["mixed_precision"] = not getattr(ns, "fp32", False)
+    return TrainConfig(**d)
 
 
 def to_finetune_config(ns: argparse.Namespace, task: str) -> FinetuneConfig:

@@ -1,5 +1,7 @@
 """Checkpoints (port of xlxmert_tpu/core/checkpoint.py's save_pytree,
-load_pytree, merge_params and load_any_checkpoint).
+load_pytree, merge_params, load_any_checkpoint, epoch_ckpt_name,
+parse_start_epoch and AsyncCheckpointer; the bit-exact full-state save
+and resume are not ported yet).
 
 Two formats: the reference's flax msgpack pytrees (`.msgpack`, fp32 or
 bf16 numpy leaves) and torch `.pth`/`.pt`/`.bin` state_dicts, converted
@@ -17,7 +19,9 @@ file is read or written.
 from __future__ import annotations
 
 import os
-from typing import Any, List, Tuple
+import re
+import threading
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 
@@ -127,16 +131,75 @@ def load_pytree(path: str) -> Any:
         return msgpack.unpackb(f.read(), ext_hook=ext_hook, raw=False)
 
 
-def load_any_checkpoint(path: str) -> Any:
+def is_full_state_tree(tree: Any) -> bool:
+    """A full train-state checkpoint ({params, opt_state, step}), the
+    JAX package's Epoch%02d_FULL.msgpack."""
+    return isinstance(tree, dict) and {"params", "opt_state", "step"} <= set(
+        tree)
+
+
+def load_any_checkpoint(path: str, keep_full_state: bool = False) -> Any:
     """Load a flax msgpack pytree or a torch .pth (converted). A
-    full-state checkpoint ({params, opt_state, step}) is unwrapped to its
-    params."""
+    full-state checkpoint is unwrapped to its params, unless
+    keep_full_state (the whole tree, for an exact resume)."""
     if path.endswith((".pth", ".pt", ".bin")):
         from xlxmert_tpu_torch.core.convert import load_torch_checkpoint
 
         return load_torch_checkpoint(path)
     tree = load_pytree(path)
-    if isinstance(tree, dict) and {"params", "opt_state", "step"} <= set(
-            tree):
+    if is_full_state_tree(tree) and not keep_full_state:
         return tree["params"]
     return tree
+
+
+def epoch_ckpt_name(epoch: int) -> str:
+    """The reference's name: Epoch%02d_LXRT (lxmert_pretrain.py:549)."""
+    return f"Epoch{epoch:02d}_LXRT.msgpack"
+
+
+def parse_start_epoch(path: str) -> int:
+    """The epoch to resume at, from a checkpoint's name
+    (lxmert_pretrain.py:679-685)."""
+    m = re.search(r"Epoch(\d+)", os.path.basename(path))
+    return int(m.group(1)) if m else 0
+
+
+class AsyncCheckpointer:
+    """Writes checkpoints on a background thread while training goes on.
+    `save` takes its host snapshot on the caller's thread (the trainer
+    updates its parameters in place, so a later copy would race the next
+    step), then serializes and writes in the background. At most one
+    save is in flight: `save` first waits for the previous one and
+    re-raises any error it hit, as `wait` does; call `wait` in a
+    `finally` before exit."""
+
+    def __init__(self) -> None:
+        self._thread: Optional[threading.Thread] = None
+        self._exc: Optional[BaseException] = None
+
+    def save(self, tree: Any, path: str) -> None:
+        self.wait()
+        host = _copy_tree(tree)
+
+        def work():
+            try:
+                save_pytree(host, path)
+            except BaseException as e:  # re-raised on the caller's thread
+                self._exc = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._exc is not None:
+            exc, self._exc = self._exc, None
+            raise exc
+
+
+def _copy_tree(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _copy_tree(v) for k, v in tree.items()}
+    return np.array(tree, copy=True)

@@ -171,6 +171,24 @@ class TrainConfig(_YamlMixin):
     def n_grids(self) -> int:
         return self.grid_size ** 2
 
+    @property
+    def n_vis(self) -> int:
+        """Visual tokens per image: grid cells, or n_boxes on the bbox
+        path (reference lxmert_data.py:225-231)."""
+        return self.grid_size ** 2 if self.grid_model else self.n_boxes
+
+    @property
+    def visual_loss_keys(self) -> Tuple[str, ...]:
+        return tuple(k for k in self.visual_losses.split(",") if k)
+
+    @property
+    def mask_modalities(self) -> Tuple[str, ...]:
+        """The task round-robin (lxmert_pretrain.py:777-805)."""
+        return tuple(task for task, on in (
+            ("vis_mask", self.task_obj_predict),
+            ("word_mask", self.task_mask_lm),
+            ("matched", self.task_matched)) if on)
+
 
 @dataclass(frozen=True)
 class FinetuneConfig(TrainConfig):

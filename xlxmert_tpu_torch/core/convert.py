@@ -12,13 +12,17 @@ released torch checkpoint is converted to that layout first:
   - weight-tied tensors are dropped; `out_cluster.bias` becomes the flat
     param `out_cluster_bias`.
 
+`load_bert_state_dict` overlays bert-base-uncased weights for
+pre-training's default initialization, and `extract_centroids` pulls the
+frozen centroid table out of a reference checkpoint.
+
 `flax_to_state_dict` goes the other way for the port's own modules
 (models/), so a flax tree loads into them and
 `convert_torch_state_dict(model.state_dict())` gives the tree back.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 
@@ -148,3 +152,76 @@ def load_torch_checkpoint(path: str) -> Dict[str, Any]:
             if k != "state_dict"):
         sd = sd["state_dict"]
     return convert_torch_state_dict(sd)
+
+
+def load_bert_state_dict(state_dict_or_path, l_layers: int = 9) -> Dict[str, Any]:
+    """bert-base-uncased torch state_dict -> XLxmert param overlay.
+
+    The reference initializes pretraining with
+    `XLxmertForPretraining.from_pretrained('bert-base-uncased')`
+    (lxmert_pretrain.py:58-61), which maps BERT weights by name overlap:
+    the model's language attribute is literally named `bert` (lxrt/
+    modeling.py:80) and HF names the LXMERT language stack `layer`, so
+    `bert.embeddings.*`, `bert.encoder.layer.{0..l_layers-1}.*`,
+    `bert.pooler.*`, `cls.predictions.*` (LM head) and
+    `cls.seq_relationship.*` (NSP -> matched head) all land; BERT layers
+    >= l_layers and everything else are dropped. `--fromScratch`
+    (param.py:90-93) is the documented opt-out.
+
+    Accepts a `.pth`/`.bin` path or an in-memory state_dict; handles both
+    BertForPreTraining (`bert.`-prefixed) and bare BertModel key layouts.
+    Returns a nested tree to overlay via `core.checkpoint.merge_params`
+    (the visual stacks, cross stacks, and heads stay at their random
+    init, exactly like the reference's strict=False name-overlap load).
+    """
+    if isinstance(state_dict_or_path, (str,)) or hasattr(state_dict_or_path,
+                                                         "__fspath__"):
+        import torch  # host-side only
+
+        sd = torch.load(str(state_dict_or_path), map_location="cpu",
+                        weights_only=False)
+        if isinstance(sd, dict) and "state_dict" in sd and not hasattr(
+                sd.get("state_dict"), "shape"):
+            sd = sd["state_dict"]
+    else:
+        sd = state_dict_or_path
+    sd = strip_ddp_prefix(sd)
+    # the canonical 2019-era bert-base-uncased pytorch_model.bin names
+    # LayerNorm params `gamma`/`beta`; modern transformers re-exports use
+    # `weight`/`bias` (transformers' own from_pretrained does this same
+    # rename). Normalize so either vintage converts.
+    sd = {(k[:-6] + ".weight" if k.endswith(".gamma")
+           else k[:-5] + ".bias" if k.endswith(".beta") else k): v
+          for k, v in sd.items()}
+    if not any(k.startswith("bert.") for k in sd):
+        # bare BertModel layout -> BertForPreTraining layout
+        sd = {("bert." + k if not k.startswith("cls.") else k): v
+              for k, v in sd.items()}
+
+    kept: Dict[str, Any] = {}
+    for key, tensor in sd.items():
+        if key.endswith("position_ids"):  # HF buffer, not a weight
+            continue
+        if key == "cls.predictions.decoder.bias":  # tied to cls.predictions.bias
+            continue
+        if key.startswith("bert.encoder.layer."):
+            idx = int(key.split(".")[3])
+            if idx >= l_layers:
+                continue  # BERT has 12 layers; the language stack takes 9
+        elif not (key.startswith("bert.embeddings.")
+                  or key.startswith("bert.pooler.")
+                  or key.startswith("cls.predictions.")
+                  or key.startswith("cls.seq_relationship.")):
+            continue  # NSP pooler variants, heads we don't have, etc.
+        kept[key] = tensor
+    return convert_torch_state_dict(kept)
+
+
+def extract_centroids(state_dict: Mapping[str, Any]) -> Optional[np.ndarray]:
+    """Pull the frozen centroid table (`vis_emb.weight`) out of a reference
+    checkpoint, if present."""
+    sd = strip_ddp_prefix(state_dict)
+    for k in ("vis_emb.weight", "module.vis_emb.weight"):
+        if k in sd:
+            return _to_numpy(sd[k])
+    return None

@@ -28,7 +28,7 @@ of the model per update; the JAX package returns new arrays.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Optional
+from typing import AbstractSet, Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
@@ -84,8 +84,12 @@ class ReferenceAdamW:
     `step(grads)` applies one update from {name: gradient} (every name
     of `params`; a missing or None gradient counts as zero, as the JAX
     package's dense gradient tree holds zeros for parameters the loss
-    does not reach). State: per-parameter `count`, `m` and `v`, and the
-    schedule position `sched_step`."""
+    does not reach). `step(grads, used=names)` is the JAX package's
+    `used_mask` (pre-training's per-task skip, torch's grad-is-None
+    rule): a parameter outside `used` gets no update and keeps its `m`,
+    `v` and `count`; the schedule still steps, and the clip norm is
+    taken over the gradients given. State: per-parameter `count`, `m`
+    and `v`, and the schedule position `sched_step`."""
 
     def __init__(self, params: Dict[str, torch.Tensor], lr: float,
                  total_steps: int, warmup_ratio: float = 0.05,
@@ -107,7 +111,8 @@ class ReferenceAdamW:
         return self.schedule(self.sched_step)
 
     @torch.no_grad()
-    def step(self, grads: Dict[str, Optional[torch.Tensor]]) -> None:
+    def step(self, grads: Dict[str, Optional[torch.Tensor]],
+             used: Optional[AbstractSet[str]] = None) -> None:
         # scalars are float32 values (as JAX's weak-typed constants round
         # to the fp32 leaves' type) passed to torch as Python floats
         f32 = np.float32
@@ -123,6 +128,8 @@ class ReferenceAdamW:
         wd = float(lr_t * f32(self.weight_decay))
         eps = float(f32(self.eps))
         for name, p in self.params.items():
+            if used is not None and name not in used:
+                continue
             g = grads.get(name)
             g = torch.zeros_like(p) if g is None else g.to(p.dtype)
             if clip is not None:

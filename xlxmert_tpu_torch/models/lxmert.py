@@ -516,3 +516,106 @@ class VisualAnswerHead(nn.Module):
         fc0, _, ln, fc3 = self.logit_fc
         h = ln(gelu(fc0(pooled), self.options.fast))
         return fc3(h).float()
+
+
+# ---------------------------------------------------------------------------
+# Pre-training heads (HF LXMERT's heads and the reference's cluster-output
+# override, x-lxmert/src/lxrt/modeling.py:8-53). A product against a
+# matrix passed at call time (the tied word embeddings, the centroid
+# table) runs in the compute type and is returned in fp32; the JAX
+# package keeps its fp32 accumulator (preferred_element_type), the port
+# rounds it to the compute type first (exact in fp32; a relative 2^-9
+# per logit in bf16), so the product stays one bf16 cuBLAS call.
+# ---------------------------------------------------------------------------
+
+
+def _tied_logits(h: torch.Tensor, matrix: torch.Tensor) -> torch.Tensor:
+    """h (..., F) against matrix (N, F) -> (..., N) fp32."""
+    return torch.matmul(h, matrix.to(h.dtype).t()).float()
+
+
+class PredictionHeadTransform(nn.Module):
+    """dense -> gelu -> LayerNorm (HF LxmertPredictionHeadTransform)."""
+
+    def __init__(self, cfg: LxmertConfig, options: ServingOptions = EXACT):
+        super().__init__()
+        self.options = options
+        self.dense = Dense(cfg.hidden_size, cfg.hidden_size)
+        self.LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
+
+    def forward(self, x):
+        return self.LayerNorm(gelu(self.dense(x), self.options.fast))
+
+
+class LMPredictionHead(nn.Module):
+    """Transform, then the decoder: the word-embedding matrix passed at
+    call time (tied by value), + an fp32 bias (HF LxmertLMPredictionHead)."""
+
+    def __init__(self, cfg: LxmertConfig, options: ServingOptions = EXACT):
+        super().__init__()
+        self.transform = PredictionHeadTransform(cfg, options)
+        self.bias = nn.Parameter(torch.empty(cfg.vocab_size))
+
+    def forward(self, hidden, word_embedding_matrix):
+        return _tied_logits(self.transform(hidden),
+                            word_embedding_matrix) + self.bias
+
+
+class PreTrainingHeads(nn.Module):
+    """LM head + 2-way matched head (HF LxmertPreTrainingHeads). Each is
+    computed only when asked for: a head left out gets no gradient,
+    which is what the JAX package's per-task optimizer mask encodes."""
+
+    def __init__(self, cfg: LxmertConfig, options: ServingOptions = EXACT):
+        super().__init__()
+        self.predictions = LMPredictionHead(cfg, options)
+        self.seq_relationship = Dense(cfg.hidden_size, 2)
+
+    def forward(self, sequence_output, pooled_output, word_embedding_matrix,
+                lm: bool = True, matched: bool = True):
+        return (self.predictions(sequence_output, word_embedding_matrix)
+                if lm else None,
+                self.seq_relationship(pooled_output).float()
+                if matched else None)
+
+
+class VisualObjHead(nn.Module):
+    """The reference's visual prediction head: transform -> linear_feat
+    (hidden -> visual_feat_dim), then
+      - clustering mode (cfg.num_clusters > 0): logits against the frozen
+        centroid table passed at call time + `out_cluster_bias`;
+      - detector-vocabulary mode: `out_obj` (-> num_object_labels);
+    and `out_attr` (-> num_attr_labels). `keys` are the outputs the
+    model was built for ("obj", "feat", "attr"): as flax creates a
+    parameter only when its branch runs at init, `out_obj`,
+    `out_cluster_bias` and `out_attr` exist only for the keys that need
+    them."""
+
+    def __init__(self, cfg: LxmertConfig, keys=("obj",),
+                 options: ServingOptions = EXACT):
+        super().__init__()
+        self.clustering = cfg.clustering
+        self.transform = PredictionHeadTransform(cfg, options)
+        self.linear_feat = Dense(cfg.hidden_size, cfg.visual_feat_dim)
+        if "obj" in keys:
+            if cfg.clustering:
+                self.out_cluster_bias = nn.Parameter(
+                    torch.empty(cfg.num_clusters))
+            else:
+                self.out_obj = Dense(cfg.visual_feat_dim,
+                                     cfg.num_object_labels)
+        if "attr" in keys:
+            self.out_attr = Dense(cfg.visual_feat_dim, cfg.num_attr_labels)
+
+    def forward(self, hidden, centroids=None, out_keys=("obj",)):
+        feat = self.linear_feat(self.transform(hidden))
+        out = {}
+        if "feat" in out_keys:
+            out["feat"] = feat
+        if "obj" in out_keys:
+            out["obj"] = (_tied_logits(feat, centroids)
+                          + self.out_cluster_bias if self.clustering
+                          else self.out_obj(feat).float())
+        if "attr" in out_keys:
+            out["attr"] = self.out_attr(feat).float()
+        return out

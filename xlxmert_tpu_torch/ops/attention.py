@@ -11,6 +11,12 @@ function over (B, H, L, D) operands, with a (B, Lk) bias, returning
 (B, H, Lq, D). Only the layout differs: head h sits at a head stride,
 not at column h*D.
 
+`mha_hbatch` ports the batched-head variant of `mha_blhd` that
+`scripts/drive_attention_layout.py` measures (`core_hbatch`): the same
+function as `mha_blhd(fast=True)`, organised as the TPU kernel is, all
+heads of a batch row in one program (`csrc/mha_hbatch.cu`, its own
+kernel and launch count).
+
 `mha_blhd_train` ports `xlxmert_tpu/ops/attention.py::mha_blhd_train`,
 the training path's attention: `mha_blhd`'s function with a pre-scaled
 dropout mask (B, H, Lq, Lk) applied to the probabilities, as a
@@ -52,8 +58,14 @@ TRAIN_KERNEL = Kernel("mha_blhd_train", "mha_blhd_train.cu",
                       [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I]
                       + [_LL] * 6 + [ctypes.c_float, _I, _I, _P])
 
+# mha_blhd's arguments without the dtype and fast flags (bf16 only)
+HBATCH_KERNEL = Kernel("mha_hbatch", "mha_hbatch.cu",
+                       [_P] * 5 + [_I] * 4 + [_LL] * 6
+                       + [ctypes.c_float, _P])
+
 MAX_LEN = 64
 HEAD_DIM = 64
+HBATCH_MAX_HEADS = 12   # one warp per head in a CTA of at most 384 threads
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -211,6 +223,43 @@ def mha_blhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
         *_blhd_args(q, k, v, n_heads, fast), stream)
+    return out
+
+
+def mha_hbatch_reference(q, k, v, bias, n_heads: int) -> torch.Tensor:
+    """Plain PyTorch version of the batched-head kernel (`kern` of
+    `core_hbatch` in scripts/drive_attention_layout.py). Its steps are
+    all six of `_attend`'s with fast=True, in the same order: fp32 q.k^T,
+    times 1/sqrt(D) in fp32 then rounded to bf16, + bias in bf16, softmax
+    in bf16 (`softmax_last`), p in bf16, fp32 p.v rounded to bf16. So it
+    is `mha_blhd_reference(fast=True)`: the two TPU kernels compute one
+    function and differ in how they organise it (a loop over heads, or
+    one batched contraction over (batch, head))."""
+    return mha_blhd_reference(q, k, v, bias, n_heads, fast=True)
+
+
+def mha_hbatch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               bias: Optional[torch.Tensor], n_heads: int) -> torch.Tensor:
+    """Packed-head attention with every head of a batch row in one CTA
+    (`csrc/mha_hbatch.cu`); `mha_blhd(fast=True)`'s function and
+    operands, bf16 only, at most 12 heads. The bias ((B, Lk) or
+    (B, 1, 1, Lk) bf16) may be None: the kernel then adds nothing, which
+    is exact (a bf16 0 added to a bf16 score changes no bit)."""
+    if q.device.type == "cpu":
+        return mha_hbatch_reference(q, k, v, bias, n_heads)
+    if q.device.type != "cuda":
+        raise ValueError(f"mha_hbatch: unsupported device {q.device}")
+    _check_blhd("mha_hbatch", q, k, v, bias, n_heads)
+    if q.dtype != torch.bfloat16 or n_heads > HBATCH_MAX_HEADS:
+        raise ValueError(f"mha_hbatch: takes bf16 q/k/v and at most "
+                         f"{HBATCH_MAX_HEADS} heads; got {q.dtype}, "
+                         f"{n_heads} heads")
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    HBATCH_KERNEL.launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(),
+        *_blhd_args(q, k, v, n_heads, True)[:-2], stream)
     return out
 
 

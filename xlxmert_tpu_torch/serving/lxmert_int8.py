@@ -11,7 +11,7 @@ Numerics follow the reference:
     (768 -> 2304) product and cross-attention KV one (768 -> 1536)
     product, computed once per side and used in both directions;
   - attention is the packed-head kernel (ops/attention.py, fast=True:
-    bf16 scores and softmax);
+    bf16 scores and softmax), or the einsum route (`attention_impl`);
   - LayerNorm takes fp32 statistics with the population variance and
     casts to bf16; residual adds, tanh gelu, the embedding sum (token
     type 0) and the visual (x + y) * 0.5 are bf16;
@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from xlxmert_tpu_torch.core.config import LxmertConfig
+from xlxmert_tpu_torch.models.lxmert import einsum_attention
 from xlxmert_tpu_torch.ops.attention import mha_blhd
 from xlxmert_tpu_torch.ops.quant import (
     ActScale, AmaxObserver, QuantWeight, quantize_weight, with_act_scale,
@@ -104,11 +105,46 @@ def _att_scales() -> nn.ModuleDict:
                           "v": ActScale()})
 
 
+# The attention route of the engine (the JAX engine's attention_impl):
+# "auto" and "pallas_blhd" are the packed-head kernel mha_blhd (fast:
+# bf16 scores and softmax), which takes its plain version for CPU
+# tensors; "einsum" is the JAX engine's bhqk einsum formulation in plain
+# PyTorch. `_attention_core` is looked up at call time, so a driver may
+# swap it (scripts/drive_attention_layout_torch.py).
+ATTENTION_IMPLS = ("auto", "pallas_blhd", "einsum")
+_ATTENTION_IMPL = "auto"
+
+
+def attention_impl(name: str) -> None:
+    global _ATTENTION_IMPL
+    if name not in ATTENTION_IMPLS:
+        raise ValueError(f"attention_impl({name!r}): use one of "
+                         f"{ATTENTION_IMPLS}")
+    _ATTENTION_IMPL = name
+
+
+def einsum_core(q, k, v, bias, n_heads: int) -> torch.Tensor:
+    """The JAX engine's einsum route, which is the bf16 model's
+    (models.lxmert.einsum_attention, fast): bhqk scores in bf16, times
+    1/sqrt(D), + bias, softmax in bf16, p.v in bf16."""
+    B, Lq, HD = q.shape
+    qh, kh, vh = (t.reshape(B, -1, n_heads, HD // n_heads).transpose(1, 2)
+                  for t in (q, k, v))
+    ctx = einsum_attention(qh, kh, vh, bias, fast=True)
+    return ctx.transpose(1, 2).reshape(B, Lq, HD)
+
+
+def _attention_core(q, k, v, bias, n_heads: int) -> torch.Tensor:
+    if _ATTENTION_IMPL == "einsum":
+        return einsum_core(q, k, v, bias, n_heads)
+    return mha_blhd(q, k, v, bias, n_heads, fast=True)
+
+
 def _core(q, k, v, bias, n_heads: int, act: nn.ModuleDict):
     act["q"].observe(q)
     act["k"].observe(k)
     act["v"].observe(v)
-    return mha_blhd(q, k, v, bias, n_heads, fast=True)
+    return _attention_core(q, k, v, bias, n_heads)
 
 
 class SelfAttention(nn.Module):
