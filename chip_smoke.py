@@ -9,7 +9,10 @@ Phases, each of which fails the script on error:
   (b) kernels: each kernel against its plain PyTorch version on the card
       at every shape the paths give it (serving at B=256 for each bucket
       length, calibration and the card-vs-CPU checks at batch 8), with
-      its time (CUDA events), the plain version's time, a PyTorch library
+      its time (CUDA events; the attention kernels and their SDPA
+      yardstick with the card's queue kept full, the median of
+      QUEUED_RUNS queued_ms runs, and back to back as enqueue_ms), the
+      plain version's time, a PyTorch library
       call's time where one computes the same function, and the least
       time the card could take (bytes over 3.35 TB/s or operations over
       the peak rate of their type, whichever is larger); the times summed
@@ -28,7 +31,10 @@ Phases, each of which fails the script on error:
       B=256 step is among its cases). mha_hbatch is held to its plain
       version at (h)'s four attention shapes at B=256 and the
       calibration batch, with and without a bias, beside SDPA and
-      mha_blhd (B1, the same function) at the same shapes;
+      mha_blhd (B1, the same function) at the same shapes. fused_mha's
+      gradients on the card (kernel forward, einsum backward) are held
+      to the CPU's, and mha_blhd, mha_hbatch and fused_ffn must refuse a
+      backward;
   (c) the serving path at full width (LxmertConfig(): 9/5/5 layers, 768
       hidden, 2048-d grid features, 3,129 answers) with random weights
       from --seed: a 512-image bf16 catalog in device memory, 2,048
@@ -158,6 +164,7 @@ IMAGES = 512          # catalog rows in device memory (134 MB bf16)
 QUESTIONS = 2048
 CALIB_SAMPLES = 256
 REPS = 10             # timed launches per shape, after 2 warm-up launches
+QUEUED_RUNS = 3       # queued_ms runs per timed function; the median kept
 # (g) fine-tuning
 FT_BATCH = 32         # the fine-tuning CLI's default batch
 FT_TEXT = 20          # max_text_length: every batch pads to it
@@ -244,6 +251,25 @@ def queued_ms(torch, fn):
             return start.elapsed_time(end) / REPS, True
         cycles *= 4
     return time_ms(torch, fn), False
+
+
+def queued_times(torch, fns) -> dict:
+    """For each function in `fns` ({key: fn}), under its key, the median
+    of QUEUED_RUNS queued_ms runs (one run of 10 launches of a ~0.05 ms
+    kernel can read twice its time); "not_queued": the keys whose
+    function waits for the card."""
+    out, not_queued = {}, []
+    for key, fn in fns.items():
+        runs = [queued_ms(torch, fn) for _ in range(QUEUED_RUNS)]
+        out[key] = sorted(ms for ms, _ in runs)[QUEUED_RUNS // 2]
+        if not all(ok for _, ok in runs):
+            not_queued.append(key)
+    return {**out, "not_queued": not_queued}
+
+
+def not_queued_note(row) -> str:
+    return (f"  (not queued, waits for the card: "
+            f"{', '.join(row['not_queued'])})" if row["not_queued"] else "")
 
 
 def bound(nbytes: float, ops: float, kind: str) -> dict:
@@ -418,22 +444,109 @@ def check_attention(torch, F, attention, cfg, rng, log, name="mha_blhd"):
             fail(f"{name} {lq}x{lk} bias={with_bias} {dt}: max abs err "
                  f"{err} > {MHA_TOL[dt]}")
         mask = None if bias is None else bias[:, None, None].to(dtype)
-        kernel = time_ms(torch, lambda: kernel_fn(*args))
-        plain = time_ms(torch, lambda: plain_fn(*args))
-        library = time_ms(torch, lambda: F.scaled_dot_product_attention(
-            *heads, attn_mask=mask))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(*heads, attn_mask=mask)
+
+        # the card's time with its queue kept full (a launch takes the
+        # host about as long as the card takes for it); enqueue_ms and
+        # library_enqueue_ms are the back-to-back times, as PR 5 took them
+        times = {"enqueue_ms": time_ms(torch, lambda: kernel_fn(*args)),
+                 "library_enqueue_ms": time_ms(torch, sdpa),
+                 **queued_times(torch, {
+                     "ms": lambda: kernel_fn(*args),
+                     "plain_ms": lambda: plain_fn(*args),
+                     "library_ms": sdpa})}
         nbytes = (B * (2 * lq + 2 * lk) * HD * q.element_size()
                   + (0 if bias is None else bias.numel() * 2))
         row = {"Lq": lq, "Lk": lk, "bias": with_bias, "dtype": dt,
                "fast": fast, "B": B, "max_abs_err": err, "tol": MHA_TOL[dt],
-               "ms": kernel, "plain_ms": plain, "library_ms": library,
-               "uses": uses,
+               **times, "uses": uses,
                **bound(nbytes, 4.0 * B * H * lq * lk * D, dt)}
         rows.append(row)
         log(f"  {name} B={B:3d} {lq:2d}x{lk:2d} bias={with_bias!s:5} "
             f"{dt:8} err {err:.2e} (tol {MHA_TOL[dt]:g})  kernel "
-            f"{kernel:.4f} ms  plain {plain:.4f}  sdpa {library:.4f}  "
-            f"bound {row['bound_ms']:.4f} ({row['bound_by']})")
+            f"{row['ms']:.4f} ms (back to back {row['enqueue_ms']:.4f})  "
+            f"plain {row['plain_ms']:.4f}  sdpa {row['library_ms']:.4f} "
+            f"(back to back {row['library_enqueue_ms']:.4f})  bound "
+            f"{row['bound_ms']:.4f} ({row['bound_by']})"
+            + not_queued_note(row))
+    return rows
+
+
+def check_fused_mha_grad(torch, attention, ffn, cfg, rng, log,
+                         device="cuda"):
+    """C1 on the card: fused_mha's gradients (q, k, v and a bias that
+    requires grad; the kernel forward, the einsum recomputed backward)
+    against the einsum's gradients on the CPU at the model's widths, B=
+    CALIB_BATCH, both cross-attention shapes, fp32 (1e-4) and bf16 (2e-2,
+    the fp32 and the bf16 softmax); and mha_blhd, mha_hbatch and
+    fused_ffn under grad: their backward raises."""
+    H, HD = cfg.num_attention_heads, cfg.hidden_size
+    D, B = HD // H, CALIB_BATCH
+    rows = []
+    for lq, lk in ((FT_TEXT, 64), (64, FT_TEXT)):
+        for dt, fast in (("float32", False), ("bfloat16", False),
+                         ("bfloat16", True)):
+            dtype = getattr(torch, dt)
+            q, k, v = (torch.randn(B, H, L, D, generator=rng,
+                                   device=rng.device).to(device, dtype)
+                       for L in (lq, lk, lk))
+            bias = 0.5 * torch.randn(B, lk, generator=rng, device=rng.device)
+            bias[1, lk // 2:] = -1e9
+            grad = torch.randn(B, H, lq, D, generator=rng,
+                               device=rng.device).to(device, dtype)
+            got = {}
+            for where, fn in ((device, attention.fused_mha),
+                              ("cpu", attention.einsum_mha_reference)):
+                leaves = [t.detach().to(where).requires_grad_()
+                          for t in (q, k, v)]
+                leaves.append(bias.to(where, torch.bfloat16)
+                              .requires_grad_())
+                out = fn(*leaves, fast)
+                out.backward(grad.to(where))
+                got[where] = [t.detach().cpu().float() for t in
+                              (out, *(x.grad for x in leaves))]
+            tol = 1e-4 if dt == "float32" else MHA_TOL[dt]
+            errs = {}
+            for name, a, r in zip(("out", "q", "k", "v", "bias"),
+                                  got[device], got["cpu"]):
+                # tol absolute and relative, as torch.testing.assert_close
+                excess = ((a - r).abs() - tol * r.abs()).max().item()
+                errs[name] = (a - r).abs().max().item()
+                if not (excess <= tol):
+                    fail(f"fused_mha backward {lq}x{lk} {dt} fast={fast}: "
+                         f"{name} differs from the CPU's by "
+                         f"{errs[name]} (tol {tol} + {tol} relative)")
+            rows.append({"B": B, "Lq": lq, "Lk": lk, "dtype": dt,
+                         "fast": fast, "tol": tol, "max_abs_err": errs})
+            log(f"  fused_mha backward B={B} {lq:2d}x{lk:2d} {dt:8} "
+                f"fast={fast!s:5} max |card - CPU| " + "  ".join(
+                    f"{n} {e:.2e}" for n, e in errs.items())
+                + f" (tol {tol:g} + {tol:g} relative)")
+    q, k, v = (torch.randn(B, FT_TEXT, HD, generator=rng, device=rng.device)
+               .to(device, torch.bfloat16).requires_grad_() for _ in range(3))
+    x = torch.randn(B * FT_TEXT, HD, generator=rng, device=rng.device).to(
+        device, torch.bfloat16).requires_grad_()
+    w1, w2 = (torch.zeros(*shape, device=device, dtype=torch.bfloat16)
+              for shape in ((cfg.intermediate_size, HD),
+                            (HD, cfg.intermediate_size)))
+    vecs = [torch.zeros(n, device=device) for n in
+            (cfg.intermediate_size, HD, HD, HD)]
+    for name, fn in (
+            ("mha_blhd", lambda: attention.mha_blhd(q, k, v, None, H)),
+            ("mha_hbatch", lambda: attention.mha_hbatch(q, k, v, None, H)),
+            ("fused_ffn", lambda: ffn.fused_ffn(x, w1, vecs[0], w2,
+                                                *vecs[1:]))):
+        try:
+            fn().float().sum().backward()
+        except RuntimeError as e:
+            if f"{name} has no gradient" not in str(e):
+                raise
+        else:
+            fail(f"{name}: a backward through the kernel did not raise")
+        log(f"  {name} under grad: the backward raises, as the JAX "
+            "package's has no vjp")
     return rows
 
 
@@ -482,32 +595,25 @@ def check_hbatch(torch, F, attention, cfg, rng, log):
         # it: time the card with its queue kept full (enqueue_ms is the
         # back-to-back time)
         enqueue = time_ms(torch, lambda: attention.mha_hbatch(*args))
-        timed = {
-            "ms": queued_ms(torch, lambda: attention.mha_hbatch(*args)),
-            "plain_ms": queued_ms(
-                torch, lambda: attention.mha_hbatch_reference(*args)),
-            "library_ms": queued_ms(
-                torch, lambda: F.scaled_dot_product_attention(
-                    *heads, attn_mask=mask)),
-            "b1_ms": queued_ms(
-                torch, lambda: attention.mha_blhd(*args, True))}
-        kernel, plain, library, b1 = (t for t, _ in timed.values())
+        times = queued_times(torch, {
+            "ms": lambda: attention.mha_hbatch(*args),
+            "plain_ms": lambda: attention.mha_hbatch_reference(*args),
+            "library_ms": lambda: F.scaled_dot_product_attention(
+                *heads, attn_mask=mask),
+            "b1_ms": lambda: attention.mha_blhd(*args, True)})
         nbytes = (B * (2 * lq + 2 * lk) * HD * 2
                   + (0 if bias is None else bias.numel() * 2))
         row = {"Lq": lq, "Lk": lk, "bias": with_bias, "dtype": dt, "B": B,
-               "max_abs_err": err, "tol": MHA_TOL[dt], "ms": kernel,
-               "enqueue_ms": enqueue, "plain_ms": plain,
-               "library_ms": library, "b1_ms": b1,
-               "not_queued": [k for k, (_, ok) in timed.items() if not ok],
-               "uses": uses, **bound(nbytes, 4.0 * B * H * lq * lk * D, dt)}
+               "max_abs_err": err, "tol": MHA_TOL[dt], "enqueue_ms": enqueue,
+               **times, "uses": uses,
+               **bound(nbytes, 4.0 * B * H * lq * lk * D, dt)}
         rows.append(row)
         log(f"  mha_hbatch B={B:3d} {lq:2d}x{lk:2d} bias={with_bias!s:5} "
-            f"err {err:.2e} (tol {MHA_TOL[dt]:g})  kernel {kernel:.4f} ms "
-            f"(back to back {enqueue:.4f})  plain {plain:.4f}  sdpa "
-            f"{library:.4f}  mha_blhd {b1:.4f}  bound {row['bound_ms']:.4f} "
-            f"({row['bound_by']})"
-            + (f"  (not queued, waits for the card: "
-               f"{', '.join(row['not_queued'])})" if row["not_queued"] else ""))
+            f"err {err:.2e} (tol {MHA_TOL[dt]:g})  kernel {row['ms']:.4f} ms "
+            f"(back to back {enqueue:.4f})  plain {row['plain_ms']:.4f}  sdpa "
+            f"{row['library_ms']:.4f}  mha_blhd {row['b1_ms']:.4f}  bound "
+            f"{row['bound_ms']:.4f} ({row['bound_by']})"
+            + not_queued_note(row))
     return rows
 
 
@@ -583,35 +689,28 @@ def check_train_attention(torch, F, attention, cfg, rng, log):
         # at these batches a launch takes the host longer than the card
         # (the back-to-back time, kept as enqueue_ms): time the card
         enqueue = time_ms(torch, lambda: attention.mha_blhd_train(*args))
-        timed = {
-            "ms": queued_ms(torch, lambda: attention.mha_blhd_train(*args)),
-            "plain_ms": queued_ms(
-                torch, lambda: attention.mha_blhd_train_reference(*args)),
-            "library_ms": queued_ms(
-                torch, lambda: F.scaled_dot_product_attention(
-                    *heads, attn_mask=amask,
-                    dropout_p=rate if with_mask else 0.0)),
-            "recompute_ms": queued_ms(torch, recompute)}
-        kernel, plain, library, back = (t for t, _ in timed.values())
+        times = queued_times(torch, {
+            "ms": lambda: attention.mha_blhd_train(*args),
+            "plain_ms": lambda: attention.mha_blhd_train_reference(*args),
+            "library_ms": lambda: F.scaled_dot_product_attention(
+                *heads, attn_mask=amask,
+                dropout_p=rate if with_mask else 0.0),
+            "recompute_ms": recompute})
         nbytes = (B * (2 * lq + 2 * lk) * HD * q.element_size()
                   + (0 if mask is None else mask.numel() * q.element_size())
                   + (0 if bias is None else bias.numel() * 2))
         row = {"B": B, "Lq": lq, "Lk": lk, "bias": with_bias, "dtype": dt,
                "mask": with_mask, "max_abs_err": err, "tol": MHA_TOL[dt],
-               "ms": kernel, "enqueue_ms": enqueue, "plain_ms": plain,
-               "library_ms": library, "recompute_ms": back,
-               "not_queued": [k for k, (_, ok) in timed.items() if not ok],
-               "uses": uses,
+               "enqueue_ms": enqueue, **times, "uses": uses,
                **bound(nbytes, 4.0 * B * H * lq * lk * D, dt)}
         rows.append(row)
         log(f"  mha_blhd_train B={B:2d} {lq:2d}x{lk:2d} mask={with_mask!s:5} "
             f"{dt:8} err {err:.2e} (tol {MHA_TOL[dt]:g})  kernel "
-            f"{kernel:.4f} ms (back to back {enqueue:.4f})  plain "
-            f"{plain:.4f}  sdpa(dropout) "
-            f"{library:.4f}  recompute {back:.4f}  bound "
-            f"{row['bound_ms']:.4f} ({row['bound_by']})"
-            + (f"  (not queued, waits for the card: "
-               f"{', '.join(row['not_queued'])})" if row["not_queued"] else ""))
+            f"{row['ms']:.4f} ms (back to back {enqueue:.4f})  plain "
+            f"{row['plain_ms']:.4f}  sdpa(dropout) "
+            f"{row['library_ms']:.4f}  recompute {row['recompute_ms']:.4f}  "
+            f"bound {row['bound_ms']:.4f} ({row['bound_by']})"
+            + not_queued_note(row))
     return rows
 
 
@@ -874,8 +973,9 @@ def per_forward(rows, mix, kinds):
     """A kernel's times summed over its launches in one forward of each
     kind, and over a serving forward drawn from `mix` (the share of
     questions, hence of full batches, at each bucket length)."""
-    keys = ("ms", "enqueue_ms", "plain_ms", "library_ms", "composed_ms",
-            "recompute_ms", "b1_ms", "bound_ms", "bytes_ms", "ops_ms")
+    keys = ("ms", "enqueue_ms", "plain_ms", "library_ms",
+            "library_enqueue_ms", "composed_ms", "recompute_ms", "b1_ms",
+            "bound_ms", "bytes_ms", "ops_ms")
     out = {}
     for kind in kinds:
         used = [(r, r["uses"][kind]) for r in rows if kind in r["uses"]]
@@ -2110,6 +2210,9 @@ def main(argv=None) -> int:
             "mha_blhd_train": check_train_attention(torch, F, attention, cfg,
                                                     rng, log),
             "mha_hbatch": check_hbatch(torch, F, attention, cfg, rng, log)}
+    log("  C1: fused_mha's gradients on the card against the CPU's; the "
+        "forward-only kernels refuse a backward")
+    grad_rows = check_fused_mha_grad(torch, attention, ffn, cfg, rng, log)
     times = {}
     for name, kernel_rows in rows.items():
         launches_per_kind(name, kernel_rows)
@@ -2126,6 +2229,9 @@ def main(argv=None) -> int:
                 composed += f"  mha_blhd {t['b1_ms']:.4f}"
             if t["enqueue_ms"] is not None:
                 composed += f"  kernel back to back {t['enqueue_ms']:.4f}"
+            if t["library_enqueue_ms"] is not None:
+                composed += ("  library back to back "
+                             f"{t['library_enqueue_ms']:.4f}")
             log(f"    {kind:17} kernel {t['ms']:.4f}  plain "
                 f"{t['plain_ms']:.4f}  library {lib}{composed}  bound "
                 f"{t['bound_ms']:.4f} ({t['bound_by']})")
@@ -2202,11 +2308,15 @@ def main(argv=None) -> int:
     with open(args.out, "w") as f:
         json.dump({"device": device_name, "nvidia_smi": card,
                    "build_s": build_s, "kernel_rows": rows,
+                   "fused_mha_grad": grad_rows,
                    "per_forward": times, "paths": paths,
                    "kernels": summary,
                    "note": "times in 'kernels' are per serving forward at "
                            "B=256, weighted by VQA_LENGTH_MIX ('mix' in "
-                           "'per_forward'), mha_blhd_train's per VQA "
+                           "'per_forward'; the attention kernels and SDPA "
+                           "with the queue kept full, their back-to-back "
+                           "times as enqueue_ms and library_enqueue_ms), "
+                           "mha_blhd_train's per VQA "
                            "training step at B=32 ('ft vqa'; library: SDPA "
                            "with dropout_p, its own mask), mha_hbatch's per "
                            "int8 forward of the layout driver at B=256, "

@@ -37,14 +37,15 @@ import chip_smoke  # noqa: E402
 
 
 # the port's kernels, by the name of their __global__ function
-PORT_KERNELS = ("mha_blhd_kernel", "int8_dense_kernel", "fused_ffn_kernel",
-                "fused_block_kernel")
+PORT_KERNELS = ("attend_mma_kernel", "mha_blhd_kernel", "int8_dense_kernel",
+                "fused_ffn_kernel", "fused_block_kernel")
 
 
 def group(name: str) -> str:
-    """A device kernel's group: one of the port's kernels (fused_mha runs
-    mha_blhd_kernel's code), a cuBLAS/CUTLASS product, or the plain
-    PyTorch glue (LayerNorm, gelu, adds, casts, copies, gathers)."""
+    """A device kernel's group: one of the port's kernels (mha_blhd and
+    fused_mha run attend_mma_kernel in bf16, mha_blhd_kernel in fp32), a
+    cuBLAS/CUTLASS product, or the plain PyTorch glue (LayerNorm, gelu,
+    adds, casts, copies, gathers)."""
     for k in PORT_KERNELS:
         if k in name:
             return k

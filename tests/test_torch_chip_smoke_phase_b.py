@@ -1,0 +1,118 @@
+"""chip_smoke.py's kernel phase (b) on the CPU: how it times the
+attention kernels (queued and back to back) and its fused_mha gradient
+check, at a small width with the card's work done on CPU tensors. Apart
+from tests/test_torch_chip_smoke.py, whose path phases take long, so
+that the two files run on separate workers."""
+import math
+import os
+import sys
+from collections import Counter
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke  # noqa: E402
+from xlxmert_tpu_torch.core.config import LxmertConfig  # noqa: E402
+from xlxmert_tpu_torch.serving import lxmert_int8 as engine  # noqa: E402
+
+SMALL = dict(vocab_size=4100, hidden_size=128, num_attention_heads=2,
+             intermediate_size=96, l_layers=2, x_layers=1, r_layers=1,
+             visual_feat_dim=16, num_clusters=50)
+
+
+class _CpuTorch:
+    """torch with a no-op torch.cuda.synchronize, to run a kernel-phase
+    check on CPU tensors."""
+
+    class cuda:
+        @staticmethod
+        def synchronize():
+            pass
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+
+def test_attention_phase_times_the_card_with_its_queue_kept_full(
+        monkeypatch):
+    """Phase (b)'s mha_blhd and fused_mha rows: the kernel, its plain
+    version and SDPA timed by queued_ms (the card's queue kept full, the
+    median of QUEUED_RUNS runs); the kernel and SDPA also back to back by time_ms, as enqueue_ms and
+    library_enqueue_ms; per_forward sums each over a forward's launches.
+    Run on the CPU at a small width with the timers replaced."""
+    import torch.nn.functional as F
+
+    from xlxmert_tpu_torch.ops import attention
+
+    cfg = LxmertConfig(**SMALL)
+    monkeypatch.setattr(chip_smoke, "BATCH", 4)
+    timed = Counter()
+
+    def fake_queued(torch_, fn):
+        fn()
+        timed["queued"] += 1
+        return 1.0, True
+
+    def fake_time(torch_, fn):
+        fn()
+        timed["back to back"] += 1
+        return 2.0
+
+    def qkv_bias(torch_, rng, B, lq, lk, HD, dtype, with_bias):
+        g = torch.Generator().manual_seed(B * 1000 + lq * 10 + lk)
+        qkv = torch.randn(B, lq, 3 * HD, generator=g).to(dtype)
+        kv = torch.randn(B, lk, 2 * HD, generator=g).to(dtype)
+        bias = None
+        if with_bias:
+            bias = torch.zeros(B, lk, dtype=torch.bfloat16)
+            bias[0, lk // 2:] = -1e9
+        return qkv[..., :HD], kv[..., :HD], kv[..., HD:], bias
+
+    monkeypatch.setattr(chip_smoke, "queued_ms", fake_queued)
+    monkeypatch.setattr(chip_smoke, "time_ms", fake_time)
+    monkeypatch.setattr(chip_smoke, "_qkv_bias", qkv_bias)
+    for name in ("mha_blhd", "fused_mha"):
+        timed.clear()
+        rows = chip_smoke.check_attention(_CpuTorch(), F, attention, cfg,
+                                          None, lambda m: None, name=name)
+        assert rows and timed == {
+            "queued": 3 * chip_smoke.QUEUED_RUNS * len(rows),
+            "back to back": 2 * len(rows)}
+        for r in rows:
+            assert (r["ms"], r["plain_ms"], r["library_ms"]) == (1, 1, 1)
+            assert r["enqueue_ms"] == r["library_enqueue_ms"] == 2
+            assert r["not_queued"] == [] and r["max_abs_err"] == 0
+        per = chip_smoke.per_forward(rows, engine.VQA_LENGTH_MIX,
+                                     chip_smoke.KINDS[name])
+        for kind in chip_smoke.KINDS[name]:
+            n = sum(r["uses"].get(kind, 0) for r in rows)
+            assert n == cfg.l_layers + cfg.r_layers + 4 * cfg.x_layers
+            assert per[kind]["ms"] == per[kind]["library_ms"] == n
+            assert per[kind]["enqueue_ms"] == 2 * n
+            assert per[kind]["library_enqueue_ms"] == 2 * n
+        assert math.isclose(per["mix"]["enqueue_ms"],
+                            2 * per["mix"]["ms"])
+
+
+def test_fused_mha_gradient_check_runs_on_the_cpu():
+    """Phase (b)'s C1 check at a small width with the "card" on the CPU:
+    fused_mha's gradients (its autograd Function) agree with the einsum's
+    in every case, and the three forward-only kernels refuse a
+    backward."""
+    from xlxmert_tpu_torch.ops import attention, ffn
+
+    cfg = LxmertConfig(**SMALL)
+    log = []
+    rows = chip_smoke.check_fused_mha_grad(
+        torch, attention, ffn, cfg, torch.Generator().manual_seed(0),
+        log.append, device="cpu")
+    assert len(rows) == 6
+    assert {(r["Lq"], r["Lk"]) for r in rows} == {
+        (chip_smoke.FT_TEXT, 64), (64, chip_smoke.FT_TEXT)}
+    for r in rows:
+        assert set(r["max_abs_err"]) == {"out", "q", "k", "v", "bias"}
+        # the same einsum backward on both sides here
+        assert all(r["max_abs_err"][n] == 0 for n in "qkv")
+    assert sum("the backward raises" in m for m in log) == 3

@@ -34,18 +34,31 @@ def _qkv(rng, B, Lq, Lk, HD, dtype, dev):
     return qkv[..., :HD], kv[..., :HD], kv[..., HD:]
 
 
-@pytest.mark.parametrize("Lq,Lk", [(20, 20), (64, 64), (20, 64), (64, 20),
-                                   (8, 8), (7, 33)])
+# every (Lq, Lk) of the serving paths (text buckets 8-20 against
+# themselves and the 64 visual cells), and ragged lengths: key and query
+# tiles of 16 cut at 1, 7, 15, 17, 33 and 63
+ATTENTION_SHAPES = sorted({(L, L) for L in (8, 12, 16, 20, 64)}
+                          | {(L, 64) for L in (8, 12, 16, 20)}
+                          | {(64, L) for L in (8, 12, 16, 20)}
+                          | {(1, 1), (7, 33), (33, 7), (15, 17), (17, 15),
+                             (63, 63), (1, 63), (63, 1)})
+# bf16 runs on tensor cores: the scores, the softmax sum and both
+# products add in another order, one bf16 step at |out| ~ 2; fp32 runs
+# on CUDA cores, sums in another order
+ATTENTION_TYPES = [(torch.bfloat16, True, 2e-2), (torch.bfloat16, False, 2e-2),
+                   (torch.float32, False, 1e-5)]
+
+
+@pytest.mark.parametrize("Lq,Lk", ATTENTION_SHAPES)
 @pytest.mark.parametrize("with_bias", [True, False])
-@pytest.mark.parametrize("dtype,fast,tol", [
-    (torch.bfloat16, True, 2e-2),   # bf16 scores/softmax: rounding order
-    (torch.bfloat16, False, 2e-2),  # bf16 out
-    (torch.float32, False, 1e-5),   # fp32 sums in another order
-])
+@pytest.mark.parametrize("dtype,fast,tol", ATTENTION_TYPES)
+@pytest.mark.parametrize("B", [256, 8])
 def test_mha_blhd_kernel_matches_plain(cuda, Lq, Lk, with_bias, dtype,
-                                       fast, tol):
-    rng = np.random.RandomState(Lq * 100 + Lk)
-    B, H, D = 6, 12, 64
+                                       fast, tol, B):
+    """Column slices of fused projections (the engines' operands) at the
+    serving batch and calibration's."""
+    rng = np.random.RandomState(Lq * 100 + Lk + B)
+    H, D = 12, 64
     q, k, v = _qkv(rng, B, Lq, Lk, H * D, dtype, cuda)
     bias = None
     if with_bias:
@@ -242,20 +255,17 @@ def test_int8_dense_kernel_rejects_what_it_cannot_take(cuda):
         int8_matmul.int8_dense_fused(x, qw.w_i8, qw.scale)
 
 
-@pytest.mark.parametrize("Lq,Lk", [(20, 20), (64, 64), (8, 64), (64, 12),
-                                   (7, 33)])
+@pytest.mark.parametrize("Lq,Lk", ATTENTION_SHAPES)
 @pytest.mark.parametrize("with_bias", [True, False])
-@pytest.mark.parametrize("dtype,fast,tol", [
-    (torch.bfloat16, True, 2e-2),   # bf16 scores/softmax: rounding order
-    (torch.float32, False, 1e-5),   # fp32 sums in another order
-])
+@pytest.mark.parametrize("dtype,fast,tol", ATTENTION_TYPES)
 @pytest.mark.parametrize("views", [False, True])
+@pytest.mark.parametrize("B", [256, 8])
 def test_fused_mha_kernel_matches_plain(cuda, Lq, Lk, with_bias, dtype,
-                                        fast, tol, views):
+                                        fast, tol, views, B):
     """(B, H, L, D) operands, contiguous or head-transposed views of the
     projections (the model's "pallas" route); (B, Lk) bf16 bias."""
-    rng = np.random.RandomState(Lq * 100 + Lk + 7)
-    B, H, D = 6, 12, 64
+    rng = np.random.RandomState(Lq * 100 + Lk + 7 + B)
+    H, D = 12, 64
     q, k, v = (t.view(B, -1, H, D).transpose(1, 2)
                for t in _qkv(rng, B, Lq, Lk, H * D, dtype, cuda))
     if not views:
@@ -274,6 +284,77 @@ def test_fused_mha_kernel_matches_plain(cuda, Lq, Lk, with_bias, dtype,
     assert out.is_contiguous()
     err = (out.float() - ref.float()).abs().max().item()
     assert err <= tol, err
+
+
+@pytest.mark.parametrize("Lq,Lk", [(20, 64), (64, 20), (20, 20)])
+@pytest.mark.parametrize("dtype,fast", [(torch.float32, False),
+                                        (torch.bfloat16, False),
+                                        (torch.bfloat16, True)])
+def test_fused_mha_backward_matches_the_cpu(cuda, Lq, Lk, dtype, fast):
+    """Forward (the kernel) and backward (einsum_mha_reference recomputed)
+    on the card, with q, k, v and the bias requiring grad, against the
+    einsum's gradients on the CPU: fp32 to 1e-4; bf16 to 2e-2 (the
+    products' sums add in another order)."""
+    rng = np.random.RandomState(Lq * 100 + Lk + 11)
+    B, H, D = 8, 12, 64
+    q, k, v = (t.view(B, -1, H, D).transpose(1, 2)
+               for t in _qkv(rng, B, Lq, Lk, H * D, dtype, cuda))
+    bias = torch.from_numpy(0.5 * rng.randn(B, Lk).astype(np.float32))
+    bias[1, Lk // 2:] = -1e9
+    g = torch.from_numpy(rng.randn(B, H, Lq, D).astype(np.float32))
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    res = {}
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [t.detach().to(dev).requires_grad_() for t in (q, k, v)]
+        b = bias.to(dev, torch.bfloat16).requires_grad_()
+        before = attention.FUSED_MHA_KERNEL.launches
+        if dev.type == "cuda":
+            out = attention.fused_mha(*leaves, b, fast)
+        else:
+            out = attention.einsum_mha_reference(*leaves, b, fast)
+        out.backward(g.to(dev, dtype))
+        assert attention.FUSED_MHA_KERNEL.launches == before + (
+            dev.type == "cuda")
+        res[dev.type] = [t.detach().float().cpu()
+                         for t in (out, *(x.grad for x in leaves), b.grad)]
+    for name, a, r in zip(("out", "q", "k", "v", "bias"), res["cuda"],
+                          res["cpu"]):
+        torch.testing.assert_close(a, r, atol=tol, rtol=tol, msg=name)
+
+
+def test_forward_only_kernels_refuse_a_backward_on_the_card(cuda):
+    """mha_blhd, mha_hbatch and fused_ffn on CUDA tensors that require
+    grad: the kernel launches, gives the bits it gives with grad off, and
+    the backward raises instead of dropping the gradient."""
+    rng = np.random.RandomState(12)
+    q, k, v = _qkv(rng, 8, 20, 20, 768, torch.bfloat16, cuda)
+    x = torch.from_numpy(rng.randn(40, 768).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    w1, w2 = (torch.from_numpy(0.02 * rng.randn(*s).astype(np.float32)).to(
+        cuda, torch.bfloat16) for s in ((3072, 768), (768, 3072)))
+    vecs = [torch.zeros(n, device=cuda) for n in (3072, 768, 768, 768)]
+    cases = {
+        "mha_blhd": (attention.KERNEL, lambda q, k, v:
+                     attention.mha_blhd(q, k, v, None, 12)),
+        "mha_hbatch": (attention.HBATCH_KERNEL, lambda q, k, v:
+                       attention.mha_hbatch(q, k, v, None, 12)),
+        "fused_ffn": (ffn.KERNEL, lambda q, k, v: ffn.fused_ffn(
+            x, w1, vecs[0], w2, *vecs[1:])),
+    }
+    for name, (kernel, fn) in cases.items():
+        with torch.no_grad():
+            want = fn(q, k, v)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        if name == "fused_ffn":
+            w1.requires_grad_()
+        before = kernel.launches
+        out = fn(*leaves)
+        assert kernel.launches == before + 1
+        assert out.grad_fn is not None
+        torch.testing.assert_close(out.detach(), want, atol=0, rtol=0)
+        with pytest.raises(RuntimeError, match=f"{name} has no gradient"):
+            out.float().sum().backward()
+        w1.requires_grad_(False)
 
 
 @pytest.mark.parametrize("M", [5120, 16384, 160, 512, 37, 1])

@@ -1,6 +1,8 @@
-// Fused multi-head attention, forward only: the device code shared by
-// mha_blhd.cu (packed heads, (B, L, H*D)), fused_mha.cu ((B, H, L, D))
-// and mha_blhd_train.cu (packed heads with a dropout mask).
+// Fused multi-head attention on CUDA cores, forward only: the device code
+// of mha_blhd_train.cu (packed heads with a dropout mask) and the fp32
+// route of mha_blhd.cu (packed heads, (B, L, H*D)) and fused_mha.cu
+// ((B, H, L, D)), whose bf16 route is attention_mma.cuh's tensor-core
+// kernel.
 //
 // Per (batch row, head): s = q k^T accumulated in fp32, times 1/sqrt(D),
 // cast to the accumulator type (bf16 when `fast` and the inputs are
@@ -24,8 +26,7 @@
 // q/k/v tiles in shared memory (fp32, padded rows against bank
 // conflicts), keeps the whole Lq x Lk score tile there, and writes only
 // the context. The products run on CUDA cores with a 2-D register tile
-// (8 rows x 4 columns of output per thread); tensor cores, TMA and
-// several heads per CTA are later work.
+// (8 rows x 4 columns of output per thread).
 
 #pragma once
 

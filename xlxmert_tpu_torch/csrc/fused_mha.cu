@@ -4,10 +4,11 @@
 // (_mha_kernel): q (B, H, Lq, D), k/v (B, H, Lk, D) with D = 64 and any
 // batch, head and row stride (head-transposed views of a projection are
 // read in place), bias (B, Lk) bf16 or absent, out (B, H, Lq, D)
-// contiguous. The same device code as mha_blhd.cu (attention.cuh, which
-// says what bounds it on an H100); only the head stride differs.
+// contiguous. The same device code as mha_blhd.cu: bf16 on tensor cores
+// (attention_mma.cuh), fp32 on CUDA cores (attention.cuh), each header
+// saying what bounds it on an H100; only the head stride differs.
 
-#include "attention.cuh"
+#include "attention_mma.cuh"
 
 extern "C" {
 
@@ -23,8 +24,8 @@ int fused_mha_launch(const void* q, const void* k, const void* v,
                                  {k_bs, k_hs, k_rs},
                                  {v_bs, v_hs, v_rs},
                                  {H * o_hs, o_hs, attention::D}};
-  return attention::launch(q, k, v, bias, nullptr, out, B, H, Lq, Lk, st,
-                           scale, dtype, fast, stream);
+  return attention_mma::launch(q, k, v, bias, out, B, H, Lq, Lk, st, scale,
+                               dtype, fast, stream);
 }
 
 const char* fused_mha_error_string(int code) {

@@ -5,10 +5,11 @@
 // any row and batch stride (the q/k/v thirds of one fused QKV projection
 // are read in place), bias (B, Lk) bf16 or absent, out (B, Lq, H*D)
 // contiguous. Head h is the column block [h*D, (h+1)*D): no transpose in
-// device memory. The device code, and what bounds it on an H100, is in
-// attention.cuh.
+// device memory. bf16 inputs run on tensor cores (attention_mma.cuh),
+// fp32 on CUDA cores (attention.cuh); each header says what bounds it on
+// an H100 and what its design does about it.
 
-#include "attention.cuh"
+#include "attention_mma.cuh"
 
 extern "C" {
 
@@ -22,8 +23,8 @@ int mha_blhd_launch(const void* q, const void* k, const void* v,
                                  {k_bs, attention::D, k_rs},
                                  {v_bs, attention::D, v_rs},
                                  {Lq * o_rs, attention::D, o_rs}};
-  return attention::launch(q, k, v, bias, nullptr, out, B, H, Lq, Lk, st,
-                           scale, dtype, fast, stream);
+  return attention_mma::launch(q, k, v, bias, out, B, H, Lq, Lk, st, scale,
+                               dtype, fast, stream);
 }
 
 const char* mha_blhd_error_string(int code) {

@@ -24,13 +24,21 @@ dropout mask (B, H, Lq, Lk) applied to the probabilities, as a
 recomputes `blhd_einsum_reference` with the same mask in plain PyTorch,
 as the JAX package's custom_vjp recomputes its einsum outside Pallas.
 
-The three CUDA kernels are `xlxmert_tpu_torch/csrc/attention.cuh` (its
-header says what bounds it on an H100 and what the design does about
-it), exported by `csrc/mha_blhd.cu`, `csrc/fused_mha.cu` and
-`csrc/mha_blhd_train.cu` (the mask as a template flag), each with its
-own launch count. `mha_blhd_reference`, `fused_mha_reference` and
+The CUDA kernels: `csrc/mha_blhd.cu` and `csrc/fused_mha.cu` run bf16
+inputs on tensor cores (`csrc/attention_mma.cuh`) and fp32 ones on CUDA
+cores (`csrc/attention.cuh`); `csrc/mha_blhd_train.cu` is the CUDA-core
+body with the mask as a template flag. Each header says what bounds it
+on an H100 and what its design does about it; each library has its own
+launch count. `mha_blhd_reference`, `fused_mha_reference` and
 `mha_blhd_train_reference` are the same functions in plain PyTorch,
 with the same rounding points.
+
+Gradients, as in the JAX package: `fused_mha` is differentiable (its
+backward recomputes `einsum_mha_reference`, as the JAX custom_vjp
+recomputes `_einsum_mha`), and so is `mha_blhd_train`; `mha_blhd` and
+`mha_hbatch` have no vjp in the JAX package and refuse a backward on
+every device (`ops/_grad.forward_only`). The plain `*_reference`
+functions stay differentiable.
 
 The wrappers take the plain versions only for tensors on the CPU. For
 CUDA tensors they launch the kernel or raise.
@@ -44,6 +52,7 @@ import numpy as np
 import torch
 
 from xlxmert_tpu_torch.ops._build import Kernel
+from xlxmert_tpu_torch.ops._grad import forward_only, tracks_grad
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNEL = Kernel("mha_blhd", "mha_blhd.cu",
@@ -123,28 +132,43 @@ def mha_blhd_train_reference(q, k, v, bias, mask, n_heads: int,
     return ctx.transpose(1, 2).reshape(B, Lq, HD)
 
 
-def blhd_einsum_reference(q, k, v, bias, mask, n_heads: int,
-                          fast: bool = False) -> torch.Tensor:
-    """`_blhd_einsum_ref` of the JAX package: the einsum formulation of
-    the training attention that its backward recomputes. The scores
-    product in the accumulator type (fp32 unless `fast`), times
-    1/sqrt(D) in that type, + bias, softmax, p in the input type, times
-    the mask, p.v in the input type. Differentiable."""
-    B, Lq, HD = q.shape
-    Lk = k.shape[1]
-    D = HD // n_heads
-    acc = q.dtype if fast else torch.float32
-    qh, kh, vh = (_heads(t, n_heads) for t in (q, k, v))
+def _einsum_attend(qh, kh, vh, bias, fast: bool, mask=None):
+    """The JAX package's einsum attention over (B, H, L, D): the scores
+    product in the accumulator type (fp32 unless `fast`), times 1/sqrt(D)
+    in that type, + bias, softmax, p in the input type, times the mask
+    (when given), p.v in the input type. Differentiable."""
+    B, Lk = kh.shape[0], kh.shape[2]
+    acc = qh.dtype if fast else torch.float32
     s = torch.matmul(qh.to(acc), kh.to(acc).transpose(-1, -2))
     # a device scalar made by a fill, not copied from the host: a copy
     # from pageable memory would wait for the card at every call
-    s = s * torch.full((), 1.0 / np.sqrt(D), dtype=acc, device=s.device)
+    s = s * torch.full((), 1.0 / np.sqrt(qh.shape[-1]), dtype=acc,
+                       device=s.device)
     if bias is not None:
         s = s + bias.reshape(B, 1, 1, Lk).to(acc)
-    p = softmax_last(s).to(q.dtype)
+    p = softmax_last(s).to(qh.dtype)
     if mask is not None:
         p = p * mask.to(p.dtype)
-    return torch.matmul(p, vh).transpose(1, 2).reshape(B, Lq, HD)
+    return torch.matmul(p, vh)
+
+
+def blhd_einsum_reference(q, k, v, bias, mask, n_heads: int,
+                          fast: bool = False) -> torch.Tensor:
+    """`_blhd_einsum_ref` of the JAX package: the einsum formulation of
+    the training attention that its backward recomputes, over packed
+    heads, with the pre-scaled dropout mask (or None) on p.
+    Differentiable."""
+    B, Lq, HD = q.shape
+    ctx = _einsum_attend(*(_heads(t, n_heads) for t in (q, k, v)), bias,
+                         fast, mask)
+    return ctx.transpose(1, 2).reshape(B, Lq, HD)
+
+
+def einsum_mha_reference(q, k, v, bias, fast: bool = False) -> torch.Tensor:
+    """`_einsum_mha` of the JAX package (`xlxmert_tpu/ops/attention.py`):
+    the einsum formulation over (B, H, L, D) that `fused_mha`'s backward
+    recomputes. Differentiable in q, k, v and the bias."""
+    return _einsum_attend(q, k, v, bias, fast)
 
 
 def fused_mha_reference(q, k, v, bias, fast: bool = False) -> torch.Tensor:
@@ -211,7 +235,16 @@ def mha_blhd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Fused attention over packed heads; see the module docstring.
     q, k and v may be column slices of one fused projection: only their
     last dimension must be contiguous. The kernel takes head dim 64,
-    lengths up to 64 and a bf16 bias (the engine's `_extend_mask`)."""
+    lengths up to 64 and a bf16 bias (the engine's `_extend_mask`).
+    Forward only: a backward through the result raises."""
+    return forward_only(
+        "mha_blhd has no gradient: the JAX package's mha_blhd has no vjp "
+        "(differentiate mha_blhd_reference, or train through "
+        "mha_blhd_train)", _mha_blhd_forward, q, k, v, bias, n_heads, fast)
+
+
+def _mha_blhd_forward(q, k, v, bias, n_heads: int,
+                      fast: bool) -> torch.Tensor:
     if q.device.type == "cpu":
         return mha_blhd_reference(q, k, v, bias, n_heads, fast)
     if q.device.type != "cuda":
@@ -244,7 +277,16 @@ def mha_hbatch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (`csrc/mha_hbatch.cu`); `mha_blhd(fast=True)`'s function and
     operands, bf16 only, at most 12 heads. The bias ((B, Lk) or
     (B, 1, 1, Lk) bf16) may be None: the kernel then adds nothing, which
-    is exact (a bf16 0 added to a bf16 score changes no bit)."""
+    is exact (a bf16 0 added to a bf16 score changes no bit). Forward
+    only: a backward through the result raises."""
+    return forward_only(
+        "mha_hbatch has no gradient: the JAX package's core_hbatch "
+        "(scripts/drive_attention_layout.py) has no vjp (differentiate "
+        "mha_hbatch_reference)", _mha_hbatch_forward, q, k, v, bias,
+        n_heads)
+
+
+def _mha_hbatch_forward(q, k, v, bias, n_heads: int) -> torch.Tensor:
     if q.device.type == "cpu":
         return mha_hbatch_reference(q, k, v, bias, n_heads)
     if q.device.type != "cuda":
@@ -340,6 +382,31 @@ def _check_heads(t: torch.Tensor, name: str, B: int, H: int, vec: int):
                          f"strides {t.stride()}")
 
 
+class _FusedMha(torch.autograd.Function):
+    """Forward: the kernel (or, on the CPU, its plain version). Backward:
+    `einsum_mha_reference` recomputed, as the JAX package's custom_vjp
+    (`_vjp_bwd`) recomputes `_einsum_mha`: gradients for q, k and v, and
+    for the bias when it requires grad."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, fast):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.fast = fast
+        return _fused_mha_forward(q, k, v, bias, fast)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            if ctx.needs_input_grad[3]:
+                bias = bias.detach().requires_grad_()
+                leaves.append(bias)
+            out = einsum_mha_reference(*leaves[:3], bias, ctx.fast)
+            grads = torch.autograd.grad(out, leaves, g)
+        return (*grads[:3], grads[3] if len(grads) > 3 else None, None)
+
+
 def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               bias: Optional[torch.Tensor], fast: bool = False
               ) -> torch.Tensor:
@@ -347,7 +414,15 @@ def fused_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     docstring. Returns (B, H, Lq, D), contiguous. q, k and v may be
     strided views (a head transpose of a projection's output): only
     their last dimension must be contiguous. The kernel takes head dim
-    64, lengths up to 64 and a contiguous bf16 (B, Lk) bias."""
+    64, lengths up to 64 and a contiguous bf16 (B, Lk) bias.
+    Differentiable in q, k, v and the bias (`_FusedMha`); with grad off
+    or no input requiring grad, the kernel is called directly."""
+    if tracks_grad(q, k, v, bias):
+        return _FusedMha.apply(q, k, v, bias, fast)
+    return _fused_mha_forward(q, k, v, bias, fast)
+
+
+def _fused_mha_forward(q, k, v, bias, fast: bool) -> torch.Tensor:
     if q.device.type == "cpu":
         return fused_mha_reference(q, k, v, bias, fast)
     if q.device.type != "cuda":

@@ -18,7 +18,10 @@ Weights are in nn.Linear's layout, as the port's modules hold them:
 w1 (I, H) is Intermediate's dense weight, w2 (H, I) FFOutput's.
 
 `fused_ffn` takes the plain version only for tensors on the CPU. For
-CUDA tensors it launches the kernel or raises.
+CUDA tensors it launches the kernel or raises. It is forward only, as
+the JAX package's (no vjp): a backward through its result raises on
+every device (`ops/_grad.forward_only`); `fused_ffn_reference` stays
+differentiable.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from xlxmert_tpu_torch.ops._build import Kernel
+from xlxmert_tpu_torch.ops._grad import forward_only
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel("fused_ffn", "fused_ffn.cu",
@@ -81,7 +85,16 @@ def fused_ffn(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
               eps: float = 1e-12) -> torch.Tensor:
     """x (..., H) -> LN(W2 gelu(W1 x + b1) + b2 + x), (..., H) in x's
     dtype; w1 (I, H), w2 (H, I). Leading dims are rows. The kernel takes
-    bf16 x, H = 768 and I a multiple of 64."""
+    bf16 x, H = 768 and I a multiple of 64. Forward only: a backward
+    through the result raises."""
+    return forward_only(
+        "fused_ffn has no gradient: the JAX package's fused_ffn has no vjp "
+        "(differentiate fused_ffn_reference)", _fused_ffn_forward, x, w1,
+        b1, w2, b2, ln_scale, ln_bias, approx_gelu, eps)
+
+
+def _fused_ffn_forward(x, w1, b1, w2, b2, ln_scale, ln_bias,
+                       approx_gelu: bool, eps: float) -> torch.Tensor:
     if x.device.type == "cpu":
         return fused_ffn_reference(x, w1, b1, w2, b2, ln_scale, ln_bias,
                                    approx_gelu, eps)
