@@ -10,7 +10,8 @@ Phases, each of which fails the script on error:
       at every shape the paths give it (serving at B=256 for each bucket
       length, calibration and the card-vs-CPU checks at batch 8), with
       its time (CUDA events; the attention kernels and their SDPA
-      yardstick with the card's queue kept full, the median of
+      yardstick, and the int8 dense kernel, its plain version and
+      torch._int_mm, with the card's queue kept full, the median of
       QUEUED_RUNS queued_ms runs, and back to back as enqueue_ms), the
       plain version's time, a PyTorch library
       call's time where one computes the same function, and the least
@@ -914,17 +915,26 @@ def dense_cases(cfg, B, n_answers):
         yield M, K, N, static, uses
 
 
-def check_int8(torch, int8_matmul, quant, cfg, B, n_answers, rng, log):
+def check_int8(torch, int8_matmul, quant, cfg, B, n_answers, rng, log,
+               device="cuda"):
+    """int8_dense against int8_dense_reference, bit for bit, at every
+    shape of the paths (dense_cases). The kernel, its plain version and
+    torch._int_mm (the int8 product alone: no quantization, no
+    dequantization, an int32 output; a yardstick the port never calls,
+    where it takes the shape) are timed with the card's queue kept full
+    (queued_times: at the text shapes a call takes the host about as
+    long as the card takes for it); the kernel also back to back
+    (enqueue_ms)."""
     rows = []
     weights = {}
     for M, K, N, static, uses in dense_cases(cfg, B, n_answers):
         if (K, N) not in weights:
-            w = torch.randn(K, N, generator=rng, device="cuda") * 0.02
-            b = torch.randn(N, generator=rng, device="cuda") * 0.02
+            w = torch.randn(K, N, generator=rng, device=device) * 0.02
+            b = torch.randn(N, generator=rng, device=device) * 0.02
             weights[K, N] = quant.quantize_weight(
-                w.cpu().numpy(), b.cpu().numpy()).to("cuda")
+                w.cpu().numpy(), b.cpu().numpy()).to(device)
         qw = weights[K, N]
-        x = torch.randn(M, K, generator=rng, device="cuda").to(
+        x = torch.randn(M, K, generator=rng, device=device).to(
             torch.bfloat16)
         inv_a, col = None, qw.scale
         if static:
@@ -939,33 +949,34 @@ def check_int8(torch, int8_matmul, quant, cfg, B, n_answers, rng, log):
         if not (err <= INT8_TOL) or not torch.isfinite(out).all():
             fail(f"int8_dense M={M} K={K} N={N} static={static}: max abs "
                  f"err {err} > {INT8_TOL}")
-        kernel = time_ms(torch, lambda: int8_matmul.int8_dense_fused(
-            x, qw.w_i8, col, qw.bias, inv_a))
-        plain = time_ms(torch, lambda: int8_matmul.int8_dense_reference(
-            x, qw.w_i8, col, qw.bias, inv_a))
-        # torch._int_mm computes the int8 product alone (no quantization,
-        # no dequantization): a yardstick, where it takes the shape
-        int_mm = None
+        fns = {"ms": lambda: int8_matmul.int8_dense_fused(
+                   x, qw.w_i8, col, qw.bias, inv_a),
+               "plain_ms": lambda: int8_matmul.int8_dense_reference(
+                   x, qw.w_i8, col, qw.bias, inv_a)}
         if M > 16 and K % 8 == 0 and N % 8 == 0:
             x8 = (quant.quantize_static_values(x, inv_a) if static
                   else quant.quantize_rows(x)[0])
             wt = qw.w_i8.t()
             try:
-                int_mm = time_ms(torch, lambda: torch._int_mm(x8, wt))
+                torch._int_mm(x8, wt)
+                fns["int_mm_ms"] = lambda: torch._int_mm(x8, wt)
             except RuntimeError as e:
                 log(f"  torch._int_mm refused M={M} K={K} N={N}: {e}")
+        enqueue = time_ms(torch, fns["ms"])
+        times = queued_times(torch, fns)
         nbytes = M * K * 2 + N * K + M * N * 2 + N * 4 * 2
         row = {"M": M, "K": K, "N": N, "static": static,
-               "max_abs_err": err, "tol": INT8_TOL, "ms": kernel,
-               "plain_ms": plain, "library_ms": None, "int_mm_ms": int_mm,
-               "uses": uses,
-               **bound(nbytes, 2.0 * M * N * K, "int8")}
+               "max_abs_err": err, "tol": INT8_TOL, "enqueue_ms": enqueue,
+               "library_ms": None, "int_mm_ms": None, **times,
+               "uses": uses, **bound(nbytes, 2.0 * M * N * K, "int8")}
         rows.append(row)
-        mm = "n/a" if int_mm is None else f"{int_mm:.4f}"
+        mm = ("n/a" if row["int_mm_ms"] is None
+              else f"{row['int_mm_ms']:.4f}")
         log(f"  int8_dense {'static ' if static else 'dynamic'} M={M:5d} "
-            f"K={K:4d} N={N:4d} err {err:.1e}  kernel {kernel:.4f} ms  "
-            f"plain {plain:.4f}  _int_mm {mm}  bound {row['bound_ms']:.4f} "
-            f"({row['bound_by']})")
+            f"K={K:4d} N={N:4d} err {err:.1e}  kernel {row['ms']:.4f} ms "
+            f"(back to back {enqueue:.4f})  plain {row['plain_ms']:.4f}  "
+            f"_int_mm {mm}  bound {row['bound_ms']:.4f} "
+            f"({row['bound_by']})" + not_queued_note(row))
     return rows
 
 
@@ -981,12 +992,19 @@ def per_forward(rows, mix, kinds):
         used = [(r, r["uses"][kind]) for r in rows if kind in r["uses"]]
         out[kind] = {k: (None if any(r.get(k) is None for r, _ in used)
                          else sum(r[k] * n for r, n in used)) for k in keys}
+        # int8_dense: torch._int_mm refuses some shapes (the answer
+        # heads): its time and the kernel's over the shapes it takes
+        took = [(r, n) for r, n in used if r.get("int_mm_ms") is not None]
+        out[kind]["int_mm_ms"] = (sum(r["int_mm_ms"] * n for r, n in took)
+                                  if took else None)
+        out[kind]["int_mm_kernel_ms"] = (sum(r["ms"] * n for r, n in took)
+                                         if took else None)
     if all(f"L={L}" in out for L in BUCKETS):
         out["mix"] = {k: (None if any(out[f"L={L}"][k] is None
                                       for L in BUCKETS)
                           else sum(mix[L] * out[f"L={L}"][k]
                                    for L in BUCKETS))
-                      for k in keys}
+                      for k in keys + ("int_mm_ms", "int_mm_kernel_ms")}
     for t in out.values():
         t["bound_by"] = ("bytes" if t["bytes_ms"] >= t["ops_ms"]
                          else "operations")
@@ -2232,6 +2250,9 @@ def main(argv=None) -> int:
             if t["library_enqueue_ms"] is not None:
                 composed += ("  library back to back "
                              f"{t['library_enqueue_ms']:.4f}")
+            if t["int_mm_ms"] is not None:
+                composed += (f"  _int_mm {t['int_mm_ms']:.4f} (kernel "
+                             f"{t['int_mm_kernel_ms']:.4f} at its shapes)")
             log(f"    {kind:17} kernel {t['ms']:.4f}  plain "
                 f"{t['plain_ms']:.4f}  library {lib}{composed}  bound "
                 f"{t['bound_ms']:.4f} ({t['bound_by']})")
@@ -2301,9 +2322,12 @@ def main(argv=None) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             # no single PyTorch call quantizes, multiplies in int8 and
-            # dequantizes: torch._int_mm's product-only times are in
-            # --out; fused_block's is its chain with torch._int_mm
-            "library_ms": t["library_ms"]})
+            # dequantizes; fused_block's is its chain with torch._int_mm
+            "library_ms": t["library_ms"],
+            # int8_dense: torch._int_mm's product alone, over the shapes
+            # it takes (not the answer heads)
+            **({"int_mm_ms": t["int_mm_ms"]} if name == "int8_dense"
+               else {})})
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump({"device": device_name, "nvidia_smi": card,
@@ -2313,9 +2337,12 @@ def main(argv=None) -> int:
                    "kernels": summary,
                    "note": "times in 'kernels' are per serving forward at "
                            "B=256, weighted by VQA_LENGTH_MIX ('mix' in "
-                           "'per_forward'; the attention kernels and SDPA "
-                           "with the queue kept full, their back-to-back "
-                           "times as enqueue_ms and library_enqueue_ms), "
+                           "'per_forward'; the attention kernels, SDPA, "
+                           "int8_dense, its plain version and _int_mm with "
+                           "the queue kept full, the kernels' back-to-back "
+                           "times as enqueue_ms, SDPA's as "
+                           "library_enqueue_ms; int8_dense's int_mm_ms "
+                           "over the shapes _int_mm takes), "
                            "mha_blhd_train's per VQA "
                            "training step at B=32 ('ft vqa'; library: SDPA "
                            "with dropout_p, its own mask), mha_hbatch's per "

@@ -116,3 +116,62 @@ def test_fused_mha_gradient_check_runs_on_the_cpu():
         # the same einsum backward on both sides here
         assert all(r["max_abs_err"][n] == 0 for n in "qkv")
     assert sum("the backward raises" in m for m in log) == 3
+
+
+def test_int8_phase_times_the_card_with_its_queue_kept_full(monkeypatch):
+    """Phase (b)'s int8_dense rows: the kernel, its plain version and
+    torch._int_mm (where it takes the shape: not the answer head) timed
+    by queued_ms, the median of QUEUED_RUNS runs; the kernel also back
+    to back by time_ms (enqueue_ms). per_forward sums each over a
+    forward's launches, int_mm_ms (and the kernel's time beside it) over
+    the shapes _int_mm takes. Run on the CPU at a small width with the
+    timers replaced and _int_mm computed by the plain int32 product."""
+    from xlxmert_tpu_torch.ops import int8_matmul, quant
+
+    cfg = LxmertConfig(**SMALL)
+    timed = Counter()
+
+    def fake_queued(torch_, fn):
+        fn()
+        timed["queued"] += 1
+        return 1.0, True
+
+    def fake_time(torch_, fn):
+        fn()
+        timed["back to back"] += 1
+        return 2.0
+
+    class _Torch(_CpuTorch):
+        @staticmethod
+        def _int_mm(a, b):
+            return quant.int8_accumulate(a, b.t())
+
+    monkeypatch.setattr(chip_smoke, "queued_ms", fake_queued)
+    monkeypatch.setattr(chip_smoke, "time_ms", fake_time)
+    rows = chip_smoke.check_int8(_Torch(), int8_matmul, quant, cfg, 4, 3129,
+                                 torch.Generator().manual_seed(0),
+                                 lambda m: None, device="cpu")
+    with_mm = [r for r in rows if r["int_mm_ms"] is not None]
+    assert with_mm and len(with_mm) < len(rows)
+    assert all(r["N"] in (3129, 2) or r["M"] <= 16 for r in rows
+               if r["int_mm_ms"] is None)
+    assert timed == {
+        "queued": chip_smoke.QUEUED_RUNS * (2 * len(rows) + len(with_mm)),
+        "back to back": len(rows)}
+    for r in rows:
+        assert (r["ms"], r["plain_ms"], r["enqueue_ms"]) == (1, 1, 2)
+        assert r["int_mm_ms"] in (None, 1)
+        assert r["max_abs_err"] == 0 and r["not_queued"] == []
+        assert r["library_ms"] is None
+    per = chip_smoke.per_forward(rows, engine.VQA_LENGTH_MIX,
+                                 chip_smoke.KINDS["int8_dense"])
+    serving = 4 * (cfg.l_layers + cfg.r_layers) + 14 * cfg.x_layers + 3
+    for L in chip_smoke.BUCKETS:
+        t = per[f"L={L}"]
+        assert t["ms"] == t["plain_ms"] == serving
+        assert t["enqueue_ms"] == 2 * serving
+        # every launch but the head's two (M = B = 4 rows) is _int_mm's
+        assert t["int_mm_ms"] == t["int_mm_kernel_ms"] == serving - 2
+    assert per["calib"]["ms"] == serving
+    assert math.isclose(per["mix"]["int_mm_ms"], serving - 2)
+    assert math.isclose(per["mix"]["enqueue_ms"], 2 * per["mix"]["ms"])

@@ -8,12 +8,20 @@ runs on a machine without them:
 
     python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 """
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
 
+from xlxmert_tpu_torch.core.config import LxmertConfig
 from xlxmert_tpu_torch.ops import attention, fused_block, ffn, int8_matmul
 from xlxmert_tpu_torch.ops.quant import quantize_weight, with_activation_scale
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+import chip_smoke  # noqa: E402  (the paths' int8 dense shapes)
 
 pytestmark = pytest.mark.gpu
 
@@ -205,6 +213,45 @@ def test_mha_blhd_train_forward_and_backward_match_the_cpu(cuda, dtype):
             assert cos > 0.999, cos
 
 
+# bf16 runs attention_mma.cuh's tensor-core body with the mask operand:
+# ragged key and query tiles (1, 7, 15, 17, 33, 63: odd key counts read
+# the mask 2 bytes at a time), the training shapes, fast or not
+TRAIN_RAGGED = [(1, 1), (7, 33), (33, 7), (15, 17), (17, 15), (63, 63),
+                (1, 63), (63, 1), (20, 20), (64, 64), (20, 64), (64, 20)]
+
+
+@pytest.mark.parametrize("Lq,Lk", TRAIN_RAGGED)
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("mask_kind", ["dropout", "rows dropped", "none"])
+@pytest.mark.parametrize("dtype,fast,tol", ATTENTION_TYPES)
+def test_mha_blhd_train_kernel_on_ragged_tiles(cuda, Lq, Lk, with_bias,
+                                               mask_kind, dtype, fast, tol):
+    """Column slices of fused projections; the mask at the model's
+    dropout rate, or with whole query rows dropped (their context is
+    0). bf16 within 2e-2 of the plain version (p, p * mask and both
+    products round or add in another order), fp32 (attention.cuh)
+    within 1e-5."""
+    rng = np.random.RandomState(Lq * 100 + Lk + 7)
+    B = 8
+    q, k, v, bias, mask = _train_operands(rng, B, Lq, Lk, with_bias,
+                                          mask_kind != "none", dtype, cuda)
+    if mask_kind == "rows dropped":
+        mask[:, :, ::3] = 0
+        mask[1] = 0
+    before = attention.TRAIN_KERNEL.launches
+    out = attention.mha_blhd_train(q, k, v, bias, mask, 12, fast=fast)
+    torch.cuda.synchronize()
+    assert attention.TRAIN_KERNEL.launches == before + 1
+    ref = attention.mha_blhd_train_reference(q, k, v, bias, mask, 12,
+                                             fast=fast)
+    assert out.shape == ref.shape == (B, Lq, 768) and out.dtype == dtype
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= tol, err
+    if mask_kind == "rows dropped":
+        assert out[1].abs().max().item() == 0
+        assert out.view(B, Lq, 12, 64)[:, ::3].abs().max().item() == 0
+
+
 def test_mha_blhd_train_kernel_rejects_what_it_cannot_take(cuda):
     q = torch.zeros(2, 8, 768, device=cuda, dtype=torch.bfloat16)
     bad = torch.ones(2, 12, 8, 8, device=cuda)   # fp32 mask, bf16 q
@@ -224,15 +271,18 @@ def test_mha_blhd_train_kernel_rejects_what_it_cannot_take(cuda):
 def test_int8_dense_kernel_matches_plain(cuda, M, K, N, static):
     """Integer products are exact in both versions and the float
     epilogue runs the same operations in the same order: bit-equal."""
-    rng = np.random.RandomState(M + K + N)
+    _int8_check(cuda, M, K, N, static, M + K + N)
+
+
+def _int8_check(dev, M, K, N, static, seed):
+    """int8_dense against its plain version, bit for bit, one launch."""
+    rng = np.random.RandomState(seed)
     qw = quantize_weight(rng.randn(K, N).astype(np.float32) * 0.05,
-                         rng.randn(N).astype(np.float32) * 0.1).to(cuda)
+                         rng.randn(N).astype(np.float32) * 0.1).to(dev)
     x = torch.from_numpy(rng.randn(M, K).astype(np.float32) * 2).to(
-        cuda, torch.bfloat16)
+        dev, torch.bfloat16)
     inv_a, col = None, qw.scale
     if static:
-        from xlxmert_tpu_torch.ops.quant import with_activation_scale
-
         with_activation_scale(qw, 0.8 * x.float().abs().max().item())
         inv_a, col = qw.inv_a, qw.out_scale
     before = int8_matmul.KERNEL.launches
@@ -242,6 +292,44 @@ def test_int8_dense_kernel_matches_plain(cuda, M, K, N, static):
     ref = int8_matmul.int8_dense_reference(x, qw.w_i8, col, qw.bias, inv_a)
     assert out.shape == (M, N) and out.dtype == torch.bfloat16
     assert torch.equal(out, ref), (out.float() - ref.float()).abs().max()
+
+
+# every (M, K, N) the serving, calibration and fine-tuning evaluation
+# paths give the int8 dense (chip_smoke's kernel phase), in both modes
+INT8_PATH_SHAPES = sorted({(M, K, N) for M, K, N, _, _ in
+                           chip_smoke.dense_cases(LxmertConfig(), 256,
+                                                  3129)})
+
+
+@pytest.mark.parametrize("M,K,N", INT8_PATH_SHAPES)
+@pytest.mark.parametrize("static", [False, True])
+def test_int8_dense_kernel_matches_plain_at_the_path_shapes(cuda, M, K, N,
+                                                            static):
+    _int8_check(cuda, M, K, N, static, M + K + N)
+
+
+@pytest.mark.parametrize("M", [1, 8, 63, 64, 65, 127, 128, 129, 257])
+@pytest.mark.parametrize("N", [2, 17, 136, 3129])
+@pytest.mark.parametrize("K", [16, 32, 48, 2048])
+@pytest.mark.parametrize("static", [False, True])
+def test_int8_dense_kernel_matches_plain_at_tile_edges(cuda, M, N, K,
+                                                       static):
+    """Rows, columns and K cut inside a tile and inside a 64-deep step
+    (K = 16, 32, 48 are shorter than one)."""
+    _int8_check(cuda, M, K, N, static, 7 * M + 3 * N + K)
+
+
+# ragged shapes that take each of the kernel's tiles: 128 x 256 (runs of
+# tiles that stay in one row block, and runs that cross row blocks, where
+# the dynamic mode computes new row scales), 64 x 128, 64 x 64
+@pytest.mark.parametrize("M,K,N", [
+    (16383, 768, 3129), (9000, 768, 1000), (5121, 48, 1000),
+    (4095, 32, 770), (2047, 48, 761), (2049, 16, 136), (300, 1536, 3129),
+    (100, 2048, 700)])
+@pytest.mark.parametrize("static", [False, True])
+def test_int8_dense_kernel_matches_plain_in_every_tile(cuda, M, K, N,
+                                                       static):
+    _int8_check(cuda, M, K, N, static, M + N)
 
 
 def test_int8_dense_kernel_rejects_what_it_cannot_take(cuda):

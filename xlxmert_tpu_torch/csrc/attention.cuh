@@ -1,8 +1,8 @@
-// Fused multi-head attention on CUDA cores, forward only: the device code
-// of mha_blhd_train.cu (packed heads with a dropout mask) and the fp32
-// route of mha_blhd.cu (packed heads, (B, L, H*D)) and fused_mha.cu
-// ((B, H, L, D)), whose bf16 route is attention_mma.cuh's tensor-core
-// kernel.
+// Fused multi-head attention on CUDA cores, forward only: the fp32 route
+// of mha_blhd.cu (packed heads, (B, L, H*D)), fused_mha.cu ((B, H, L,
+// D)) and mha_blhd_train.cu (packed heads with a dropout mask), whose
+// bf16 route is attention_mma.cuh's tensor-core kernel. Only float is
+// instantiated.
 //
 // Per (batch row, head): s = q k^T accumulated in fp32, times 1/sqrt(D),
 // cast to the accumulator type (bf16 when `fast` and the inputs are
@@ -312,27 +312,6 @@ int launch_typed(const void* q, const void* k, const void* v,
         scale, round_scores);
   }
   return static_cast<int>(cudaGetLastError());
-}
-
-// dtype: 0 = fp32, 1 = bf16; bias: bf16 (B, Lk) or null; mask: (B, H,
-// Lq, Lk) contiguous in the input type, or null (the serving kernels
-// always pass null); head dim 64. scale: float32(1/sqrt(64)) as the
-// caller rounds it; `fast` rounds the scores and softmax to bf16 (bf16
-// inputs only). Returns the launch's cudaError_t (0 on success).
-inline int launch(const void* q, const void* k, const void* v,
-                  const void* bias, const void* mask, void* out, int B, int H,
-                  int Lq, int Lk, const Strides& st, float scale, int dtype,
-                  int fast, void* stream) {
-  if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || Lq > kMaxL || Lk > kMaxL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch_typed<__nv_bfloat16>(q, k, v, bias, mask, out, B, H, Lq,
-                                       Lk, st, scale, fast, s);
-  if (dtype == 0)
-    return launch_typed<float>(q, k, v, bias, mask, out, B, H, Lq, Lk, st,
-                               scale, 0, s);
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace attention

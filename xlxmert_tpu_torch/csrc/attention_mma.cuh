@@ -1,17 +1,20 @@
 // Fused multi-head attention in bf16 on Hopper's tensor cores, forward
-// only: the bf16 route of mha_blhd.cu (packed heads, (B, L, H*D)) and of
-// fused_mha.cu ((B, H, L, D)). Their fp32 route stays on attention.cuh's
-// CUDA-core body, which is exact to 1e-5; on tensor cores fp32 would be
-// TF32.
+// only: the bf16 route of mha_blhd.cu (packed heads, (B, L, H*D)), of
+// fused_mha.cu ((B, H, L, D)) and, with a dropout mask, of
+// mha_blhd_train.cu. Their fp32 route stays on attention.cuh's CUDA-core
+// body, which is exact to 1e-5; on tensor cores fp32 would be TF32.
 //
 // Replaces the TPU kernels xlxmert_tpu/ops/attention.py::_mha_blhd_kernel
-// (:159, called by mha_blhd) and ::_mha_kernel (:36, called by
-// fused_mha) for bf16 inputs. Per (batch row, head): s = q k^T
-// accumulated in fp32, times 1/sqrt(D); with `fast` the scaled scores
-// round to bf16, the bias adds in bf16 and the softmax runs in bf16 (its
-// sum in fp32, rounded), as the reference's acc_dtype = bf16; without it
-// scores and softmax stay fp32. p rounds to bf16, p v accumulates in
-// fp32 and is stored in bf16. These are attention.cuh's rounding points.
+// (:159, called by mha_blhd, :256), ::_mha_kernel (:36, called by
+// fused_mha) and, as the masked body (kMask), _mha_blhd_kernel with
+// mask_ref (:159, called by mha_blhd_train, :354) for bf16 inputs. Per
+// (batch row, head): s = q k^T accumulated in fp32, times 1/sqrt(D);
+// with `fast` the scaled scores round to bf16, the bias adds in bf16 and
+// the softmax runs in bf16 (its sum in fp32, rounded), as the
+// reference's acc_dtype = bf16; without it scores and softmax stay fp32.
+// p rounds to bf16 (with kMask: times the pre-scaled dropout factor,
+// rounded to bf16 once more), p v accumulates in fp32 and is stored in
+// bf16. These are attention.cuh's rounding points.
 //
 // What bounds it on an H100: each (b, h) pair does 4 Lq Lk D flops on
 // (2 Lq + 2 Lk) D x 2 bytes, about 32 flop/byte at L = 64, far below the
@@ -47,6 +50,11 @@
 //     version's does (see the scores below);
 //   - each warp writes its context into the q tile it has consumed and
 //     stores it as whole 16-byte pieces of 128-byte rows.
+//   - with kMask, the (Lq, Lk) mask of the (b, h) pair (a third of the
+//     bytes at L = 64) is read once from device memory, straight into
+//     the accumulator layout (4-byte pairs; 2-byte reads at odd Lk),
+//     issued before the scores so that it lands during them; keys past
+//     Lk and rows past Lq are not read.
 // Not wgmma: its 64-row M tile would be mostly padding at Lq = 20, and
 // the work is memory-bound, not product-bound.
 
@@ -169,13 +177,15 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
 }
 
 // KT: key tiles of 16 (Lk padded to 16 KT); kFast: bf16 scores and
-// softmax. Grid: B * H CTAs, CTA (b, h) = (blockIdx.x / H, blockIdx.x %
-// H), of 32 QT threads (QT = q tiles of 16 rows): warp w takes q tile w.
-template <int KT, bool kFast>
+// softmax; kMask: p times the dropout mask. Grid: B * H CTAs, CTA (b, h)
+// = (blockIdx.x / H, blockIdx.x % H), of 32 QT threads (QT = q tiles of
+// 16 rows): warp w takes q tile w.
+template <int KT, bool kFast, bool kMask>
 __global__ void __launch_bounds__(32 * (kMaxL / 16))
     attend_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v,
-                      const bf16* __restrict__ bias, bf16* __restrict__ out,
+                      const bf16* __restrict__ bias,
+                      const bf16* __restrict__ mask, bf16* __restrict__ out,
                       int H, int Lq, int Lk, Strides st, float scale) {
   constexpr int LKP = 16 * KT;  // padded keys
   constexpr int NT = 2 * KT;    // score tiles of 8 keys
@@ -203,6 +213,38 @@ __global__ void __launch_bounds__(32 * (kMaxL / 16))
   const int t = lane % 4;  // fragment column pair
   const int m0 = 16 * (threadIdx.x / 32);
   bf16* qh = qs + m0 * kRow;  // this warp's q tile
+
+  // the dropout mask, read once from device memory straight into the
+  // accumulator layout while q, k and v land: mk[j][r] holds the factors
+  // of row m0 + g + 8r at keys 8j + 2t and 8j + 2t + 1 (0 past Lq or Lk)
+  uint32_t mk[kMask ? NT : 1][2];
+  if (kMask) {
+    const bf16* mb = mask + (static_cast<long long>(b) * H + h) * Lq * Lk;
+    // pairs are 4-byte aligned when Lk is even (and the mask is)
+    const bool pairs =
+        Lk % 2 == 0 && (reinterpret_cast<uintptr_t>(mask) & 3) == 0;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = m0 + g + 8 * r;
+        const int key = 8 * j + 2 * t;
+        uint32_t val = 0u;
+        if (row < Lq && key < Lk) {
+          const bf16* p = mb + row * Lk + key;
+          if (pairs) {
+            val = *reinterpret_cast<const uint32_t*>(p);
+          } else {
+            val = *reinterpret_cast<const uint16_t*>(p);
+            if (key + 1 < Lk)
+              val |= static_cast<uint32_t>(
+                         *reinterpret_cast<const uint16_t*>(p + 1))
+                     << 16;
+          }
+        }
+        mk[j][r] = val;
+      }
+  }
 
   cp_async_wait<1>();
   __syncthreads();
@@ -290,7 +332,9 @@ __global__ void __launch_bounds__(32 * (kMaxL / 16))
   // midpoint. A division per score costs more, most where the padding
   // bias zeroes e (a division of 0 leaves the division's fast path):
   // 0.0779 against 0.0578 ms at B=256, 64 x 64 with the bias, on an H100
-  // SXM at 700 W (scripts/time_attention_variants.py, div).
+  // SXM at 700 W (scripts/time_attention_variants.py, div). With kMask,
+  // p rounds to bf16, then p times the mask rounds once more (two bf16
+  // values, multiplied in fp32), as the plain version's p * mask.
   const float inv[2] = {__frcp_rn(sum[0]), __frcp_rn(sum[1])};
   uint32_t pa[KT][4];
 #pragma unroll
@@ -298,10 +342,18 @@ __global__ void __launch_bounds__(32 * (kMaxL / 16))
 #pragma unroll
     for (int half = 0; half < 2; ++half)
 #pragma unroll
-      for (int r = 0; r < 2; ++r)
-        pa[kk][2 * half + r] =
-            pack_bf16(__fmul_rn(s[2 * kk + half][2 * r], inv[r]),
-                      __fmul_rn(s[2 * kk + half][2 * r + 1], inv[r]));
+      for (int r = 0; r < 2; ++r) {
+        float p0 = __fmul_rn(s[2 * kk + half][2 * r], inv[r]);
+        float p1 = __fmul_rn(s[2 * kk + half][2 * r + 1], inv[r]);
+        if (kMask) {
+          const float2 m = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(
+                  &mk[kMask ? 2 * kk + half : 0][r]));
+          p0 = __fmul_rn(round_bf16(p0), m.x);
+          p1 = __fmul_rn(round_bf16(p1), m.y);
+        }
+        pa[kk][2 * half + r] = pack_bf16(p0, p1);
+      }
 
   cp_async_wait<0>();
   __syncthreads();
@@ -342,37 +394,60 @@ __global__ void __launch_bounds__(32 * (kMaxL / 16))
   }
 }
 
-template <int KT, bool kFast>
+template <int KT, bool kFast, bool kMask>
 int launch_kt(const bf16* q, const bf16* k, const bf16* v, const bf16* bias,
-              bf16* out, int B, int H, int Lq, int Lk, const Strides& st,
-              float scale, cudaStream_t stream) {
+              const bf16* mask, bf16* out, int B, int H, int Lq, int Lk,
+              const Strides& st, float scale, cudaStream_t stream) {
   const int qt = (Lq + 15) / 16;
   const size_t smem = sizeof(bf16) * (16 * qt + 2 * 16 * KT) * kRow +
                       sizeof(float) * Lk;
-  auto kernel = attend_mma_kernel<KT, kFast>;
-  kernel<<<B * H, 32 * qt, smem, stream>>>(q, k, v, bias, out, H, Lq, Lk, st,
-                                           scale);
+  auto kernel = attend_mma_kernel<KT, kFast, kMask>;
+  kernel<<<B * H, 32 * qt, smem, stream>>>(q, k, v, bias, mask, out, H, Lq,
+                                           Lk, st, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kFast>
+template <bool kFast, bool kMask>
 int launch_fast(const bf16* q, const bf16* k, const bf16* v, const bf16* bias,
-                bf16* out, int B, int H, int Lq, int Lk, const Strides& st,
-                float scale, cudaStream_t s) {
+                const bf16* mask, bf16* out, int B, int H, int Lq, int Lk,
+                const Strides& st, float scale, cudaStream_t s) {
   switch ((Lk + 15) / 16) {
     case 1:
-      return launch_kt<1, kFast>(q, k, v, bias, out, B, H, Lq, Lk, st, scale,
-                                 s);
+      return launch_kt<1, kFast, kMask>(q, k, v, bias, mask, out, B, H, Lq,
+                                        Lk, st, scale, s);
     case 2:
-      return launch_kt<2, kFast>(q, k, v, bias, out, B, H, Lq, Lk, st, scale,
-                                 s);
+      return launch_kt<2, kFast, kMask>(q, k, v, bias, mask, out, B, H, Lq,
+                                        Lk, st, scale, s);
     case 3:
-      return launch_kt<3, kFast>(q, k, v, bias, out, B, H, Lq, Lk, st, scale,
-                                 s);
+      return launch_kt<3, kFast, kMask>(q, k, v, bias, mask, out, B, H, Lq,
+                                        Lk, st, scale, s);
     default:
-      return launch_kt<4, kFast>(q, k, v, bias, out, B, H, Lq, Lk, st, scale,
-                                 s);
+      return launch_kt<4, kFast, kMask>(q, k, v, bias, mask, out, B, H, Lq,
+                                        Lk, st, scale, s);
   }
+}
+
+template <bool kMask>
+int launch_bf16(const void* q, const void* k, const void* v,
+                const void* bias, const void* mask, void* out, int B, int H,
+                int Lq, int Lk, const Strides& st, float scale, int fast,
+                cudaStream_t s) {
+  const auto* qp = static_cast<const bf16*>(q);
+  const auto* kp = static_cast<const bf16*>(k);
+  const auto* vp = static_cast<const bf16*>(v);
+  const auto* bp = static_cast<const bf16*>(bias);
+  const auto* mp = static_cast<const bf16*>(mask);
+  auto* op = static_cast<bf16*>(out);
+  if (fast)
+    return launch_fast<true, kMask>(qp, kp, vp, bp, mp, op, B, H, Lq, Lk, st,
+                                    scale, s);
+  return launch_fast<false, kMask>(qp, kp, vp, bp, mp, op, B, H, Lq, Lk, st,
+                                   scale, s);
+}
+
+inline bool valid(int B, int H, int Lq, int Lk, int dtype) {
+  return B >= 1 && H >= 1 && Lq >= 1 && Lk >= 1 && Lq <= kMaxL &&
+         Lk <= kMaxL && (dtype == 0 || dtype == 1);
 }
 
 // The serving kernels' entry point (mha_blhd.cu, fused_mha.cu). dtype 1
@@ -386,21 +461,35 @@ inline int launch(const void* q, const void* k, const void* v,
                   const void* bias, void* out, int B, int H, int Lq, int Lk,
                   const Strides& st, float scale, int dtype, int fast,
                   void* stream) {
-  if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || Lq > kMaxL || Lk > kMaxL ||
-      (dtype != 0 && dtype != 1))
+  if (!valid(B, H, Lq, Lk, dtype))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return attention::launch_typed<float>(q, k, v, bias, nullptr, out, B, H,
                                           Lq, Lk, st, scale, 0, s);
-  const auto* qp = static_cast<const bf16*>(q);
-  const auto* kp = static_cast<const bf16*>(k);
-  const auto* vp = static_cast<const bf16*>(v);
-  const auto* bp = static_cast<const bf16*>(bias);
-  auto* op = static_cast<bf16*>(out);
-  if (fast)
-    return launch_fast<true>(qp, kp, vp, bp, op, B, H, Lq, Lk, st, scale, s);
-  return launch_fast<false>(qp, kp, vp, bp, op, B, H, Lq, Lk, st, scale, s);
+  return launch_bf16<false>(q, k, v, bias, nullptr, out, B, H, Lq, Lk, st,
+                            scale, fast, s);
+}
+
+// The training kernel's entry point (mha_blhd_train.cu): launch's
+// arguments and a dropout mask (B, H, Lq, Lk) contiguous in the input
+// type, or null. bf16 runs this file's kernel with the mask operand;
+// fp32 attention.cuh's masked body.
+inline int launch_train(const void* q, const void* k, const void* v,
+                        const void* bias, const void* mask, void* out, int B,
+                        int H, int Lq, int Lk, const Strides& st, float scale,
+                        int dtype, int fast, void* stream) {
+  if (!valid(B, H, Lq, Lk, dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return attention::launch_typed<float>(q, k, v, bias, mask, out, B, H, Lq,
+                                          Lk, st, scale, 0, s);
+  if (mask == nullptr)
+    return launch_bf16<false>(q, k, v, bias, nullptr, out, B, H, Lq, Lk, st,
+                              scale, fast, s);
+  return launch_bf16<true>(q, k, v, bias, mask, out, B, H, Lq, Lk, st, scale,
+                           fast, s);
 }
 
 }  // namespace attention_mma

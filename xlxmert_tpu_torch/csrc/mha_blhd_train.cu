@@ -2,7 +2,7 @@
 // forward of the training path's attention.
 //
 // Replaces the TPU kernel xlxmert_tpu/ops/attention.py::mha_blhd_train
-// (its forward _mha_blhd_train_fwd, body _mha_blhd_kernel with
+// (:354; its forward _mha_blhd_train_fwd, body _mha_blhd_kernel :159 with
 // mask_ref): q (B, Lq, H*D), k/v (B, Lk, H*D) with D = 64 and any row
 // and batch stride (column slices of a projection are read in place),
 // bias (B, Lk) bf16 or absent, mask (B, H, Lq, Lk) contiguous in the
@@ -10,13 +10,15 @@
 // absent, out (B, Lq, H*D) contiguous. The mask multiplies the softmax
 // probabilities after they are cast to the input type, before p v.
 //
-// The device code is attention.cuh's, instantiated with the mask flag.
-// What bounds it on an H100: q, k, v and out move (2 Lq + 2 Lk) D bytes
-// per (b, h) and the mask Lq Lk more; at L = 64 the mask is a third of
-// the traffic, and every byte is read once. The backward is a plain
-// PyTorch recompute (ops/attention.py), as the JAX package's is an einsum.
+// bf16 inputs (the training default, fast or not) run attention_mma.cuh's
+// tensor-core kernel with the mask operand; fp32 runs attention.cuh's
+// CUDA-core body, exact to 1e-5. What bounds it on an H100: q, k, v and
+// out move (2 Lq + 2 Lk) D elements per (b, h) and the mask Lq Lk more;
+// at L = 64 the mask is a third of the traffic, and every byte is read
+// once. The backward is a plain PyTorch recompute (ops/attention.py), as
+// the JAX package's is an einsum.
 
-#include "attention.cuh"
+#include "attention_mma.cuh"
 
 extern "C" {
 
@@ -31,8 +33,8 @@ int mha_blhd_train_launch(const void* q, const void* k, const void* v,
                                  {k_bs, attention::D, k_rs},
                                  {v_bs, attention::D, v_rs},
                                  {Lq * o_rs, attention::D, o_rs}};
-  return attention::launch(q, k, v, bias, mask, out, B, H, Lq, Lk, st, scale,
-                           dtype, fast, stream);
+  return attention_mma::launch_train(q, k, v, bias, mask, out, B, H, Lq, Lk,
+                                     st, scale, dtype, fast, stream);
 }
 
 const char* mha_blhd_train_error_string(int code) {

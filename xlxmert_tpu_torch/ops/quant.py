@@ -101,10 +101,11 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     amax / 127 is a true division, as in the reference: the divisor is a
     tensor on x's device because PyTorch's CUDA division by a Python
     scalar multiplies by its reciprocal, which can differ in the last
-    bit."""
+    bit. It is filled on the device (torch.full), not copied from the
+    host, so that the call does not wait for the card."""
     xf = x.float()
     s = torch.clamp_min(xf.abs().amax(-1, keepdim=True)
-                        / torch.tensor(127.0, device=xf.device), 1e-8)
+                        / torch.full((), 127.0, device=xf.device), 1e-8)
     return torch.round(xf / s).to(torch.int8), s
 
 
