@@ -10,9 +10,11 @@ Phases, each of which fails the script on error:
       at every shape the paths give it (serving at B=256 for each bucket
       length, calibration and the card-vs-CPU checks at batch 8), with
       its time (CUDA events; the attention kernels and their SDPA
-      yardstick, and the int8 dense kernel, its plain version and
-      torch._int_mm, with the card's queue kept full, the median of
-      QUEUED_RUNS queued_ms runs, and back to back as enqueue_ms), the
+      yardstick, the int8 dense kernel, its plain version and
+      torch._int_mm, and fused_ffn and fused_block with their plain
+      versions and library chains, with the card's queue kept full, the
+      median of QUEUED_RUNS queued_ms runs, and back to back as
+      enqueue_ms), the
       plain version's time, a PyTorch library
       call's time where one computes the same function, and the least
       time the card could take (bytes over 3.35 TB/s or operations over
@@ -715,7 +717,7 @@ def check_train_attention(torch, F, attention, cfg, rng, log):
     return rows
 
 
-def check_ffn(torch, F, ffn, cfg, rng, log):
+def check_ffn(torch, F, ffn, cfg, rng, log, device="cuda"):
     """fused_ffn (tanh gelu, as serving runs it) with bf16 rows and
     weights at the model's widths; the library call is the same math as
     bf16 PyTorch ops: linear, gelu, linear, residual add, layer_norm."""
@@ -723,7 +725,7 @@ def check_ffn(torch, F, ffn, cfg, rng, log):
     eps = cfg.layer_norm_eps
 
     def randn(*shape, scale=1.0):
-        return torch.randn(*shape, generator=rng, device="cuda") * scale
+        return torch.randn(*shape, generator=rng, device=device) * scale
 
     w1 = randn(I, Hd, scale=0.02).to(torch.bfloat16)
     w2 = randn(Hd, I, scale=0.02).to(torch.bfloat16)
@@ -742,22 +744,30 @@ def check_ffn(torch, F, ffn, cfg, rng, log):
         tol = FFN_TOL_REL * ref.float().abs().max().item()
         if not (err <= tol) or not torch.isfinite(out).all():
             fail(f"fused_ffn M={M}: max abs err {err} > {tol}")
-        kernel = time_ms(torch, lambda: ffn.fused_ffn(
-            *args, approx_gelu=True, eps=eps))
-        plain = time_ms(torch, lambda: ffn.fused_ffn_reference(
-            *args, approx_gelu=True, eps=eps))
-        library = time_ms(torch, lambda: F.layer_norm(
-            F.linear(F.gelu(F.linear(x, w1, lib[0]), approximate="tanh"),
-                     w2, lib[1]) + x, (Hd,), lib[2], lib[3], eps))
+        def kernel_fn():
+            return ffn.fused_ffn(*args, approx_gelu=True, eps=eps)
+
+        # the card's queue kept full (queued_times), the kernel also back
+        # to back (enqueue_ms)
+        enqueue = time_ms(torch, kernel_fn)
+        times = queued_times(torch, {
+            "ms": kernel_fn,
+            "plain_ms": lambda: ffn.fused_ffn_reference(
+                *args, approx_gelu=True, eps=eps),
+            "library_ms": lambda: F.layer_norm(
+                F.linear(F.gelu(F.linear(x, w1, lib[0]), approximate="tanh"),
+                         w2, lib[1]) + x, (Hd,), lib[2], lib[3], eps)})
         nbytes = 2 * M * Hd * 2 + 2 * Hd * I * 2 + (I + 3 * Hd) * 4
         row = {"M": M, "H": Hd, "I": I, "max_abs_err": err, "tol": tol,
-               "ms": kernel, "plain_ms": plain, "library_ms": library,
-               "uses": uses,
+               "split": ffn.launch_plan(M, I), "enqueue_ms": enqueue,
+               **times, "uses": uses,
                **bound(nbytes, 4.0 * M * Hd * I, "bfloat16")}
         rows.append(row)
-        log(f"  fused_ffn M={M:5d} err {err:.2e} (tol {tol:.2e})  kernel "
-            f"{kernel:.4f} ms  plain {plain:.4f}  library {library:.4f}  "
-            f"bound {row['bound_ms']:.4f} ({row['bound_by']})")
+        log(f"  fused_ffn M={M:5d} split {row['split']} err {err:.2e} (tol "
+            f"{tol:.2e})  kernel {row['ms']:.4f} ms (back to back "
+            f"{enqueue:.4f})  plain {row['plain_ms']:.4f}  library "
+            f"{row['library_ms']:.4f}  bound {row['bound_ms']:.4f} "
+            f"({row['bound_by']})" + not_queued_note(row))
     return rows
 
 
@@ -781,7 +791,8 @@ def fused_block_cases(cfg, B):
     return [(M, v, uses) for (M, v), uses in sorted(shapes.items())]
 
 
-def check_fused_block(torch, fb, int8_matmul, quant, cfg, rng, log):
+def check_fused_block(torch, fb, int8_matmul, quant, cfg, rng, log,
+                      device="cuda"):
     """fused_block against fused_block_reference at every (M, variant)
     of the fused path, with random calibrated weights at the model's
     widths. Also times the chain it replaces: the reference's glue with
@@ -791,14 +802,14 @@ def check_fused_block(torch, fb, int8_matmul, quant, cfg, rng, log):
     Nq = 3 * Hd
 
     def weight(k, n, amax):
-        w = torch.randn(k, n, generator=rng, device="cuda") * 0.03
-        b = torch.randn(n, generator=rng, device="cuda") * 0.05
+        w = torch.randn(k, n, generator=rng, device=device) * 0.03
+        b = torch.randn(n, generator=rng, device=device) * 0.05
         qw = quant.quantize_weight(w.cpu().numpy(), b.cpu().numpy())
         return fb.fused_weight(quant.with_activation_scale(qw, amax)).to(
-            "cuda")
+            device)
 
     def vec(scale, shift=0.0):
-        return torch.randn(Hd, generator=rng, device="cuda") * scale + shift
+        return torch.randn(Hd, generator=rng, device=device) * scale + shift
 
     out_w, w1, w2 = weight(Hd, Hd, 4.0), weight(Hd, I, 4.5), \
         weight(I, Hd, 2.5)
@@ -818,9 +829,9 @@ def check_fused_block(torch, fb, int8_matmul, quant, cfg, rng, log):
     rows = []
     for M, variant, uses in fused_block_cases(cfg, BATCH):
         ffn_on, tail_on = variant != "tail", variant != "ffn"
-        ctx = torch.randn(M, Hd, generator=rng, device="cuda").to(
+        ctx = torch.randn(M, Hd, generator=rng, device=device).to(
             torch.bfloat16)
-        x = torch.randn(M, Hd, generator=rng, device="cuda").to(
+        x = torch.randn(M, Hd, generator=rng, device=device).to(
             torch.bfloat16)
         ffn_args = (w1, w2, ln2) if ffn_on else (None,) * 3
         tail = tail_w if tail_on else None
@@ -847,14 +858,17 @@ def check_fused_block(torch, fb, int8_matmul, quant, cfg, rng, log):
                 fail(f"fused_block M={M} {variant} {name}: max abs err {e} "
                      f"(tol {t}), cosine {c} (> {BLOCK_COSINE})")
             err, tol, cos = max(err, e), max(tol, t), min(cos, c)
-        kernel = time_ms(torch, kernel_fn)
-        plain = time_ms(torch, chain)
-        composed = time_ms(torch, lambda: chain(kernel_dense))
-        library = None
+        # the card's queue kept full (queued_times), the kernel also back
+        # to back (enqueue_ms)
+        fns = {"ms": kernel_fn, "plain_ms": chain,
+               "composed_ms": lambda: chain(kernel_dense)}
         try:
-            library = time_ms(torch, lambda: chain(int_mm_dense))
+            chain(int_mm_dense)
+            fns["library_ms"] = lambda: chain(int_mm_dense)
         except RuntimeError as e:
             log(f"  torch._int_mm refused fused_block M={M}: {e}")
+        enqueue = time_ms(torch, kernel_fn)
+        times = queued_times(torch, fns)
         n_w = Hd * Hd + (2 * Hd * I if ffn_on else 0) + (
             Nq * Hd if tail_on else 0)
         n_vec = 4 * Hd + (2 * I + 4 * Hd if ffn_on else 0) + (
@@ -863,15 +877,18 @@ def check_fused_block(torch, fb, int8_matmul, quant, cfg, rng, log):
             M * Nq * 2 if tail_on else 0)
         row = {"M": M, "variant": variant, "I": I if ffn_on else 0,
                "Nq": Nq if tail_on else 0, "max_abs_err": err, "tol": tol,
-               "cosine": cos, "ms": kernel, "plain_ms": plain,
-               "library_ms": library, "composed_ms": composed,
+               "cosine": cos, "split": fb.launch_plan(M, I if ffn_on else 0),
+               "enqueue_ms": enqueue, "library_ms": None, **times,
                "uses": uses, **bound(nbytes, 2.0 * M * n_w, "int8")}
         rows.append(row)
-        lib = "n/a" if library is None else f"{library:.4f}"
-        log(f"  fused_block M={M:5d} {variant:8} err {err:.2e} (tol "
-            f"{tol:.2e}) cos {cos:.7f}  kernel {kernel:.4f} ms  plain "
-            f"{plain:.4f}  composed {composed:.4f}  _int_mm chain {lib}  "
-            f"bound {row['bound_ms']:.4f} ({row['bound_by']})")
+        lib = ("n/a" if row["library_ms"] is None
+               else f"{row['library_ms']:.4f}")
+        log(f"  fused_block M={M:5d} {variant:8} split {row['split']} err "
+            f"{err:.2e} (tol {tol:.2e}) cos {cos:.7f}  kernel "
+            f"{row['ms']:.4f} ms (back to back {enqueue:.4f})  plain "
+            f"{row['plain_ms']:.4f}  composed {row['composed_ms']:.4f}  "
+            f"_int_mm chain {lib}  bound {row['bound_ms']:.4f} "
+            f"({row['bound_by']})" + not_queued_note(row))
     return rows
 
 
@@ -2338,8 +2355,10 @@ def main(argv=None) -> int:
                    "note": "times in 'kernels' are per serving forward at "
                            "B=256, weighted by VQA_LENGTH_MIX ('mix' in "
                            "'per_forward'; the attention kernels, SDPA, "
-                           "int8_dense, its plain version and _int_mm with "
-                           "the queue kept full, the kernels' back-to-back "
+                           "int8_dense, its plain version and _int_mm, "
+                           "fused_ffn, fused_block, their plain versions "
+                           "and library chains with the queue kept full, "
+                           "the kernels' back-to-back "
                            "times as enqueue_ms, SDPA's as "
                            "library_enqueue_ms; int8_dense's int_mm_ms "
                            "over the shapes _int_mm takes), "

@@ -175,3 +175,63 @@ def test_int8_phase_times_the_card_with_its_queue_kept_full(monkeypatch):
     assert per["calib"]["ms"] == serving
     assert math.isclose(per["mix"]["int_mm_ms"], serving - 2)
     assert math.isclose(per["mix"]["enqueue_ms"], 2 * per["mix"]["ms"])
+
+
+def test_fused_phases_time_the_card_with_their_queue_kept_full(monkeypatch):
+    """Phase (b)'s fused_ffn and fused_block rows: the kernel, its plain
+    version and its library chain (fused_block: also the chain composed
+    through the int8 dense kernel) timed by queued_ms, the median of
+    QUEUED_RUNS runs; the kernel also back to back by time_ms
+    (enqueue_ms); per_forward sums each over a forward's launches. Run on
+    the CPU at a small width with the timers replaced and _int_mm
+    computed by the plain int32 product."""
+    import torch.nn.functional as F
+
+    from xlxmert_tpu_torch.ops import ffn, fused_block, int8_matmul, quant
+
+    cfg = LxmertConfig(**SMALL)
+    monkeypatch.setattr(chip_smoke, "BATCH", 4)
+    timed = Counter()
+
+    def fake_queued(torch_, fn):
+        fn()
+        timed["queued"] += 1
+        return 1.0, True
+
+    def fake_time(torch_, fn):
+        fn()
+        timed["back to back"] += 1
+        return 2.0
+
+    class _Torch(_CpuTorch):
+        @staticmethod
+        def _int_mm(a, b):
+            return quant.int8_accumulate(a, b.t())
+
+    monkeypatch.setattr(chip_smoke, "queued_ms", fake_queued)
+    monkeypatch.setattr(chip_smoke, "time_ms", fake_time)
+    rng = torch.Generator().manual_seed(0)
+    rows = chip_smoke.check_ffn(_Torch(), F, ffn, cfg, rng, lambda m: None,
+                                device="cpu")
+    assert rows and timed == {"queued": 3 * chip_smoke.QUEUED_RUNS
+                              * len(rows), "back to back": len(rows)}
+    for r in rows:
+        assert (r["ms"], r["plain_ms"], r["library_ms"]) == (1, 1, 1)
+        assert r["enqueue_ms"] == 2 and r["not_queued"] == []
+        assert r["split"] in (1, 2)
+    timed.clear()
+    block = chip_smoke.check_fused_block(_Torch(), fused_block, int8_matmul,
+                                         quant, cfg, rng, lambda m: None,
+                                         device="cpu")
+    assert block and timed == {"queued": 4 * chip_smoke.QUEUED_RUNS
+                               * len(block), "back to back": len(block)}
+    for r in block:
+        assert (r["ms"], r["plain_ms"], r["composed_ms"],
+                r["library_ms"]) == (1, 1, 1, 1)
+        assert r["enqueue_ms"] == 2 and r["not_queued"] == []
+    for name, kernel_rows in (("fused_ffn", rows), ("fused_block", block)):
+        per = chip_smoke.per_forward(kernel_rows, engine.VQA_LENGTH_MIX,
+                                     chip_smoke.KINDS[name])
+        n = sum(r["uses"].get("L=8", 0) for r in kernel_rows)
+        assert per["L=8"]["ms"] == n and per["L=8"]["enqueue_ms"] == 2 * n
+        assert math.isclose(per["mix"]["enqueue_ms"], 2 * per["mix"]["ms"])

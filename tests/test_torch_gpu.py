@@ -476,6 +476,80 @@ def test_fused_ffn_kernel_matches_plain(cuda, M, approx):
     assert (out == ref).float().mean().item() >= 0.99
 
 
+CFG = LxmertConfig()
+FFN_PATH_ROWS = [M for M, _ in chip_smoke.ffn_cases(CFG, chip_smoke.BATCH)]
+EDGE_ROWS = [1, 63, 64, 65, 127, 129, 200]
+
+
+def _ffn_operands(rng, dev, M, I):
+    H = 768
+
+    def t(*shape, scale=1.0, dtype=torch.float32):
+        a = rng.randn(*shape).astype(np.float32) * scale
+        return torch.from_numpy(a).to(dev, dtype)
+
+    return (t(M, H, dtype=torch.bfloat16),
+            t(I, H, scale=0.02, dtype=torch.bfloat16), t(I, scale=0.02),
+            t(H, I, scale=0.02, dtype=torch.bfloat16), t(H, scale=0.02),
+            1.0 + t(H, scale=0.1), t(H, scale=0.02))
+
+
+def _ffn_check(args, approx, equal=0.99):
+    before = ffn.KERNEL.launches
+    out = ffn.fused_ffn(*args, approx_gelu=approx)
+    torch.cuda.synchronize()
+    assert ffn.KERNEL.launches == before + 1
+    ref = ffn.fused_ffn_reference(*args, approx_gelu=approx)
+    assert out.shape == ref.shape and out.dtype == torch.bfloat16
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2.0 ** -7 * ref.float().abs().max().item(), err
+    assert (out == ref).float().mean().item() >= equal
+    return out
+
+
+@pytest.mark.parametrize("M", FFN_PATH_ROWS)
+def test_fused_ffn_kernel_matches_plain_at_the_path_shapes(cuda, M):
+    """Every row count of the paths (chip_smoke.ffn_cases), tanh gelu as
+    serving runs it, with the launch plan the wrapper picks."""
+    _ffn_check(_ffn_operands(np.random.RandomState(M), cuda, M, 3072), True)
+
+
+@pytest.mark.parametrize("M", EDGE_ROWS)
+@pytest.mark.parametrize("I", [64, 192, 3072])
+@pytest.mark.parametrize("approx", [True, False])
+@pytest.mark.parametrize("split", [1, 2])
+def test_fused_ffn_kernel_at_the_design_edges(cuda, monkeypatch, M, I,
+                                              approx, split):
+    """Rows around a CTA's 64 and a pair's, the smallest and a ragged
+    intermediate (chunks of 128: 64 and 192 end in half a chunk), both
+    gelu forms, each cluster split the kernel takes (a split needs an
+    even number of chunks). The bound on the largest error is the
+    path's; the share of equal outputs is 98 %: below M = 16 there are
+    as few as 768 outputs, of which a bf16 step from the fp32 sums'
+    order moves about one in a hundred."""
+    if -(-I // 128) % split:
+        pytest.skip("the split does not divide the intermediate's chunks")
+    monkeypatch.setattr(ffn, "launch_plan", lambda M_, I_: split)
+    _ffn_check(_ffn_operands(np.random.RandomState(M + I), cuda, M, I),
+               approx, equal=0.98)
+
+
+def test_fused_ffn_weight_descriptors_survive_other_weights(cuda):
+    """A weight's TMA descriptor is built once and kept (by address and
+    shape): after another weight of the same shape was used, and after
+    that one was freed and a third allocated, each still gives its own
+    plain version's result, and the first its earlier bits."""
+    rng = np.random.RandomState(7)
+    first = _ffn_operands(rng, cuda, 256, 3072)
+    out = _ffn_check(first, True)
+    other = _ffn_operands(rng, cuda, 256, 3072)
+    _ffn_check(other, True)
+    del other
+    third = _ffn_operands(rng, cuda, 256, 3072)
+    _ffn_check(third, True)
+    assert torch.equal(_ffn_check(first, True), out)
+
+
 def test_fused_ffn_kernel_rejects_what_it_cannot_take(cuda):
     x = torch.zeros(4, 768, device=cuda, dtype=torch.bfloat16)
     w1 = torch.zeros(100, 768, device=cuda, dtype=torch.bfloat16)
@@ -538,6 +612,80 @@ def test_fused_block_kernel_matches_plain(cuda, M, ffn_on, tail_on):
         assert err <= 2.0 ** -6 * r.abs().max().item(), err
         cos = (o * r).sum() / (o.norm() * r.norm())
         assert cos.item() > 0.9999, cos.item()
+
+
+BLOCK_PATH_CASES = [(M, v) for M, v, _ in chip_smoke.fused_block_cases(
+    CFG, chip_smoke.BATCH)]
+VARIANTS = {"ffn+tail": (True, True), "ffn": (True, False),
+            "tail": (False, True)}
+
+
+def _block_check(ctx, x, w, lns, ffn_on, tail_on):
+    g1, b1, g2, b2 = lns
+    ffn_w = (w["w1"], w["w2"], g2, b2) if ffn_on else (None,) * 4
+    tail_w = w["tail_w"] if tail_on else None
+    before = fused_block.KERNEL.launches
+    out = fused_block.fused_block(ctx, x, w["out_w"], g1, b1, *ffn_w,
+                                  tail_w=tail_w, has_ffn=ffn_on)
+    torch.cuda.synchronize()
+    assert fused_block.KERNEL.launches == before + 1
+    ref = fused_block.fused_block_reference(
+        ctx, x, w["out_w"], fused_block.LN(g1, b1),
+        *((w["w1"], w["w2"], fused_block.LN(g2, b2)) if ffn_on
+          else (None,) * 3), tail_w)
+    outs, refs = ((out, ref) if tail_on else ((out,), (ref,)))
+    for o, r in zip(outs, refs):
+        assert o.shape == r.shape and o.dtype == torch.bfloat16
+        o, r = o.float(), r.float()
+        err = (o - r).abs().max().item()
+        assert err <= 2.0 ** -6 * r.abs().max().item(), err
+        cos = (o * r).sum() / (o.norm() * r.norm())
+        assert cos.item() > 0.9999, cos.item()
+    return outs
+
+
+@pytest.mark.parametrize("M,variant", BLOCK_PATH_CASES)
+def test_fused_block_kernel_matches_plain_at_the_path_shapes(cuda, M,
+                                                             variant):
+    """Every (rows, variant) of the fused path (chip_smoke's
+    fused_block_cases), with the launch plan the wrapper picks."""
+    rng = np.random.RandomState(M + len(variant))
+    ctx, x, w, lns = _block_operands(rng, cuda, M)
+    _block_check(ctx, x, w, lns, *VARIANTS[variant])
+
+
+@pytest.mark.parametrize("M", EDGE_ROWS)
+@pytest.mark.parametrize("I,Nq", [(128, 128), (384, 256), (3072, 2304)])
+@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("split", [1, 2])
+def test_fused_block_kernel_at_the_design_edges(cuda, monkeypatch, M, I, Nq,
+                                                variant, split):
+    """Rows around a CTA's 64, the smallest and other intermediate and
+    tail widths the wrapper takes (multiples of 128), each cluster split
+    the kernel takes (a split needs an even number of chunks)."""
+    ffn_on = VARIANTS[variant][0]
+    if ffn_on and (I // 128) % split:
+        pytest.skip("the split does not divide the intermediate's chunks")
+    monkeypatch.setattr(fused_block, "launch_plan", lambda M_, I_: split)
+    rng = np.random.RandomState(M + I + Nq)
+    ctx, x, w, lns = _block_operands(rng, cuda, M, I=I, Nq=Nq)
+    _block_check(ctx, x, w, lns, *VARIANTS[variant])
+
+
+def test_fused_block_weight_descriptors_survive_other_weights(cuda):
+    """As for fused_ffn: the kept TMA descriptors (by address and shape)
+    give each weight its own result after others of its shape were used,
+    freed and replaced, and the first its earlier bits."""
+    rng = np.random.RandomState(11)
+    ctx, x, first, lns = _block_operands(rng, cuda, 256)
+    out = _block_check(ctx, x, first, lns, True, True)
+    _, _, other, _ = _block_operands(rng, cuda, 256)
+    _block_check(ctx, x, other, lns, True, True)
+    del other
+    _, _, third, _ = _block_operands(rng, cuda, 256)
+    _block_check(ctx, x, third, lns, True, True)
+    again = _block_check(ctx, x, first, lns, True, True)
+    assert all(torch.equal(a, b) for a, b in zip(again, out))
 
 
 def test_fused_block_kernel_rejects_what_it_cannot_take(cuda):

@@ -15,9 +15,10 @@
 // acc * out_scale + bias in fp32 (__fmul_rn / __fadd_rn: no contraction),
 // rounded to bf16; residual adds in fp32 rounded to bf16; LayerNorm with
 // two-pass fp32 statistics, eps 1e-12; tanh gelu in fp32 from the bf16
-// value, rounded to bf16. The integer products are exact, so only the
-// order of the LayerNorm sums and tanhf can differ from the plain
-// version: a bf16 step of y1, and one int8 step downstream.
+// value, rounded to bf16. The integer products are exact in any order
+// (a cluster's partial FFN2 sums too), so only the order of the
+// LayerNorm sums and tanhf can differ from the plain version: a bf16
+// step of y1, and one int8 step downstream.
 //
 // What bounds it on an H100: 2*M*768*(768 + 2 I + Nq) int8 operations
 // against the weights (7.1 MB at I = 3,072, Nq = 2,304) plus M*768*2*3 +
@@ -27,106 +28,105 @@
 // against 0.047 ms. A block without the FFN (the cross outputs) is bound
 // by bytes at every shape of the path, and so is every block at the
 // batch-8 check shapes below M = 512. (chip_smoke.py computes the bound
-// of each shape.)
+// of each shape.) Inside the SM the limits are the weights' stream from
+// L2 (every 64-row block reads all 7.1 MB: at 8,192 int8 operations a
+// clock an SM that is 64 bytes a clock, ~15 TB/s over the card, against
+// an L2 that gives well under half of that) and shared memory's 128
+// bytes a clock, which wgmma's operand reads, TMA's writes and the
+// epilogues share.
 //
-// Measured on an H100 (chip_smoke.py): one CTA's pass over a full block
-// takes 0.33 ms (M <= 4,096 is one wave), 432 tile steps of ~760 ns;
-// M = 16,384 (3.9 waves) takes 1.55 ms; per serving forward of the
-// length mix 23.4 ms against a 1.71 ms bound, and against 42.7 ms for
-// the same chain through the int8 dense kernel and eager glue.
-//
-// What the design does about it: one CTA of 8 warps owns 32 rows and all
-// 768 output columns, so the whole chain runs on data that never leaves
-// the SM: the 768 int32 sums of a row tile stay in registers (96 a
-// thread) through the out-projection and again through FFN2; y1 sits in
-// shared memory as bf16 (for the second residual), and the int8 operand
-// of every product (q(ctx), then q(y1), then q(y2)) in one 32 x 768
-// shared buffer. The 3,072-wide FFN activation is streamed in 128-wide
-// chunks: each chunk of FFN1 is dequantized, rounded, passed through
-// gelu, quantized into shared memory and multiplied into the FFN2 sums
-// at once. With a static scale and exact int32 sums the chunking changes
-// no bit. The weights do not fit an SM's shared memory (the FFN's alone
-// are 4.5 MiB), so they stream through a 6-stage cp.async ring of
-// 128 x 128-byte tiles in one sequence per launch (36 of Wo, 12 per FFN
-// chunk, 6 per 128 tail columns: 432 for a full block), and the ring does
-// not drain between the phases. Products are mma.sync.m16n8k32.s8 (as in
-// int8_dense.cu); each warp computes 16 rows x 32 columns of a tile. The
-// ragged last row tile is masked (rows past M read as zero and are not
-// written). 32 rows a CTA give 64 CTAs at M = 2,048 on 132 SMs (one
-// wave, half the card) and 512 at M = 16,384 (3.9 waves); the rows per
-// CTA are a constant of this file, not tuned yet. Every 32-row tile
-// re-reads all four weights from L2, as every TPU row block re-read them
-// from HBM. No wgmma or TMA yet: those are later work.
+// What the design does about it (this file's earlier mma.sync version,
+// one 32-row CTA of 8 warps streaming the weights through a cp.async
+// ring, took 0.33 ms for one CTA's pass and 23.4 ms a mix forward):
+//   - a cluster of 2 x split CTAs (ops/_plan.launch_plan: split 1, or 2
+//     where the pairs would need a second, mostly empty wave) shares a
+//     64-row block. Each CTA runs two consumer warpgroups and a producer
+//     warp. Half p of the pair takes FFN2's 384 output columns [384 p, +
+//     384) (3 accumulator tiles of 64 a warpgroup, 96 int32 registers a
+//     thread: 192, with both halves in one CTA, had ptxas spill and
+//     serialize every wgmma); both halves compute the same FFN1 chunks.
+//     The split takes slices of the intermediate; the 2 x split CTAs take
+//     equal parts of the out-projection's, the LayerNorms' and the
+//     tail's columns. Partial FFN2 sums meet at the CTA that owns their
+//     columns, the LayerNorms' row statistics at every CTA and the next
+//     product's int8 operand in every CTA's buffer, all through
+//     distributed shared memory;
+//   - products are wgmma.m64n64k32.s32.s8.s8 with both operands in shared
+//     memory. The int8 operand of every product (q(ctx), q(y1), q(y2)) is
+//     quantized once per row block into a 64 x 768 buffer in the 128-byte
+//     swizzle, and each 128-wide chunk of the FFN activation (dequantized,
+//     gelu, quantized) into a 64 x 128 one: the (M, I) activation never
+//     leaves the SM. Each warpgroup computes 64 of a chunk's columns;
+//   - the weights stream as TMA boxes of 64 rows x 64 k (64-byte swizzle,
+//     wgmma's B operand as it lands) through a 10-slot ring of 16 KB (two
+//     boxes a warpgroup a step) in one sequence a launch (out-projection,
+//     then per chunk 6 steps of W1 and 3 of W2, then the tail). The
+//     producer warp waits for a slot's "empty" barrier and asks TMA for
+//     the step; the consumers release a slot once the wgmma that read it
+//     is done: no block barrier a step (thread 0 issuing the loads
+//     behind a barrier a step was slower, PERF.md). A weight's TMA
+//     descriptor is built once and kept;
+//   - LayerNorm runs on the accumulators; the epilogues load their
+//     vectors at clamped indices and select after (loads under branches
+//     had waited for each other), and gelu is tanh's equivalent x / (1 +
+//     exp(-2 u)) (tanhf made a chunk's gelu cost more than its
+//     products).
+// What bounds it now (scripts/time_ffn_variants.py --kernel
+// fused_block; PERF.md): without the products 15 % less time, without
+// the loads 6-11 % less; the rest is the pipeline's own cost per 16 KB
+// step (wait, wgmma issue, release) and the epilogues' cluster barriers.
+// Tried and dropped (PERF.md): a CTA owning all 768 columns, cluster
+// splits of 4, TMA multicast of the weights over two row blocks or of W1
+// over the pair, setmaxnreg (ptxas kept the consumers at 168 registers).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kH = 768;              // row width (hidden size)
-constexpr int kBM = 32;              // rows per CTA
-constexpr int kTile = 128;           // weight tile: 128 rows (n) x 128 k
-constexpr int kSlices = kH / kTile;  // 128-wide slices of a 768-wide row
-constexpr int kThreads = 256;        // 8 warps: 2 row tiles x 4 col groups
-constexpr int kStages = 6;           // ring depth: 5 tiles in flight
-constexpr int kAS = kH + 16;         // int8 operand row stride: 4 mod 32 words
-constexpr int kYS = kH + 8;          // y1 (bf16) row stride: 4 mod 32 words
-constexpr int kTS = kTile + 16;      // tile and h chunk row stride: 36 words
-constexpr int kTileBytes = kTile * kTS;
-constexpr int kSmemBytes = kBM * kAS + 2 * kBM * kYS + kBM * kTS +
-                           kStages * kTileBytes + 2 * kBM * 4 * 4;
+using namespace hopper;
+using bf16 = __nv_bfloat16;
 
-struct Rows {
-  const __nv_bfloat16* ctx;
-  const __nv_bfloat16* x;
-  __nv_bfloat16* y;
-  __nv_bfloat16* tail;
-  int M;
-};
+constexpr int kH = 768;               // row width (hidden size)
+constexpr int kBM = 64;               // rows a CTA
+constexpr int kThreads = 288;         // two consumer warpgroups, a producer
+constexpr int kKSteps = kH / 64;      // 64-deep k steps of a 768-deep product
+constexpr int kTiles = kH / 64;       // 64-wide column tiles of a row
+constexpr int kChunk = 128;           // FFN intermediate columns a chunk
+constexpr int kBox = 64 * 64;         // weight box: 64 rows x 64 k, int8
+constexpr int kSlot = 4 * kBox;       // ring slot: two boxes a warpgroup
+constexpr int kStages = 10;
+constexpr int kOffQ = 0;                                  // q operand
+constexpr int kOffH = kBM * kH;                           // h chunk
+constexpr int kOffRing = kOffH + kBM * kChunk;            // weight ring
+constexpr int kOffPart = kOffRing + kStages * kSlot;      // [2][64] f32
+constexpr int kOffStats = kOffPart + 2 * kBM * 4;         // [2][4][64] f32
+constexpr int kOffBar = kOffStats + 2 * 4 * kBM * 4;      // barriers
+constexpr int kSmem = kOffBar + 2 * kStages * 8 + 1024;   // + alignment
+static_assert(kSmem <= 232448, "fits an SM's shared memory");
+static_assert(kBM * (kH / 4) * 4 <= kStages * kSlot,
+              "the partial FFN2 sums a cluster exchanges fit the ring");
 
-// one int8 product: weight, out_scale, bias and the static input scale
+// one int8 product's epilogue: out_scale, bias and the static input
+// scale of its operand
 struct Dense {
-  const int8_t* w;
   const float* so;
   const float* b;
   float inv;
 };
 
-struct Block {
-  Dense out, w1, w2, q;     // w1.w == nullptr: no FFN; q.w == nullptr: no tail
+struct Params {
+  CUtensorMap wo, w1, w2, wq;
+  const bf16* ctx;
+  const bf16* x;
+  bf16* y;
+  bf16* tail;
+  Dense out, f1, f2, q;
   const float *g1, *be1, *g2, *be2;
-  int I, Nq;
+  int M, I, Nq, ffn, has_tail;
   float eps;
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-// waits until at most kStages - 2 of this thread's copy groups are pending
-__device__ __forceinline__ void cp_async_wait_ring() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
-}
-
-// c += a b: a 16x32 (row), b 32x8 (col), s8 in, s32 sums. Not volatile:
-// a register-only operation the compiler may schedule freely.
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a,
-                                       const uint32_t* b) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 __device__ __forceinline__ int quant(float v, float inv) {
   return min(max(__float2int_rn(__fmul_rn(v, inv)), -127), 127);
@@ -136,103 +136,274 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// acc * out_scale[n] + bias[n], rounded to bf16
-__device__ __forceinline__ float dequant(int acc, const Dense& d, int n) {
-  return bf16_round(__fadd_rn(__fmul_rn(__int2float_rn(acc), d.so[n]),
-                              d.b[n]));
+// acc * out_scale + bias, rounded to bf16
+__device__ __forceinline__ float dequant(int acc, float so, float b) {
+  return bf16_round(__fadd_rn(__fmul_rn(__int2float_rn(acc), so), b));
 }
 
-// PyTorch's tanh gelu in its order of operations, without fused
-// multiply-adds: 0.5 x (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3)))
+// PyTorch's tanh gelu, 0.5 x (1 + tanh(u)) with u = sqrt(2/pi) (x +
+// 0.044715 x^3) in its order of operations, taken as x / (1 + exp(-2 u))
+// (the same value): an exponential and a division on the special
+// function unit, where tanhf's ~40 instructions had made the gelu of a
+// chunk cost more than its products. A few fp32 ulp from tanhf's.
 __device__ __forceinline__ float gelu_tanh(float x) {
   const float cube = __fmul_rn(__fmul_rn(x, x), x);
   const float inner = __fmul_rn(0.7978845608028654f,
                                 __fadd_rn(x, __fmul_rn(0.044715f, cube)));
-  return __fmul_rn(__fmul_rn(0.5f, x), __fadd_rn(1.f, tanhf(inner)));
+  return __fdividef(x, 1.f + __expf(-2.f * inner));
 }
 
 __device__ __forceinline__ uint16_t pack2(int a, int b) {
   return static_cast<uint16_t>((a & 0xff) | ((b & 0xff) << 8));
 }
 
-// Tile t of the launch's weight sequence into `dst`: first the
-// out-projection (k tile t / 6, column slice t % 6), then with the FFN
-// 12 per 128-wide chunk c of the intermediate (6 of W1: rows c*128.., k
-// tile j; 6 of W2: rows s*128.., k from c*128), then the tail (column
-// slice u / 6, k tile u % 6).
-__device__ __forceinline__ void load_tile(int8_t* dst, int t,
-                                          const Block& p) {
-  const int8_t* src;
-  long long ld = kH;
-  if (t < kSlices * kSlices) {
-    src = p.out.w + static_cast<long long>((t % kSlices) * kTile) * kH +
-          (t / kSlices) * kTile;
-  } else {
-    t -= kSlices * kSlices;
-    const int n_ffn = p.w1.w ? (p.I / kTile) * 2 * kSlices : 0;
-    if (t < n_ffn) {
-      const int c = t / (2 * kSlices), j = t % (2 * kSlices);
-      if (j < kSlices) {
-        src = p.w1.w + static_cast<long long>(c * kTile) * kH + j * kTile;
-      } else {
-        src = p.w2.w + static_cast<long long>((j - kSlices) * kTile) * p.I +
-              c * kTile;
-        ld = p.I;
-      }
-    } else {
-      t -= n_ffn;
-      src = p.q.w + static_cast<long long>((t / kSlices) * kTile) * kH +
-            (t % kSlices) * kTile;
-    }
-  }
-#pragma unroll
-  for (int it = 0; it < kTile * kTile / 16 / kThreads; ++it) {
-    const int idx = threadIdx.x + it * kThreads;
-    const int r = idx / (kTile / 16);
-    const int c = (idx % (kTile / 16)) * 16;
-    cp_async16(dst + r * kTS + c, src + r * ld + c);
-  }
+// stages of a k step when a CTA takes `tiles` column tiles: its two
+// warpgroups split them (the first takes the odd one), two boxes each a
+// stage
+__device__ __forceinline__ int stages_for(int tiles) {
+  const int n0 = (tiles + 1) / 2;
+  return (n0 + 1) / 2;
 }
 
+// The cluster: 2 NI CTAs on one row block. Rank r = p NI + c takes the
+// column half p (384 columns of the FFN's output), the slice c of the
+// intermediate, and the r-th of 2 NI parts of the out-projection's, the
+// LayerNorms' and the tail's columns.
+template <int NI>
 __global__ void __launch_bounds__(kThreads, 1)
-    fused_block_kernel(Rows rows, Block p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  int8_t* as = reinterpret_cast<int8_t*>(smem_raw);  // [32][kAS] operand
-  __nv_bfloat16* y1s =
-      reinterpret_cast<__nv_bfloat16*>(smem_raw + kBM * kAS);  // [32][kYS]
-  int8_t* hs = reinterpret_cast<int8_t*>(y1s + kBM * kYS);     // [32][kTS]
-  int8_t* tiles = hs + kBM * kTS;
-  float* red = reinterpret_cast<float*>(tiles + kStages * kTileBytes);
+    fused_block_kernel(const __grid_constant__ Params p) {
+  constexpr int R = 2 * NI;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* qbuf = smem + kOffQ;
+  unsigned char* hbuf = smem + kOffH;
+  float* part = reinterpret_cast<float*>(smem + kOffPart);
+  float* stats = reinterpret_cast<float*>(smem + kOffStats);
+  const uint32_t q_u32 = smem_u32(qbuf), h_u32 = smem_u32(hbuf);
+  const uint32_t ring_u32 = smem_u32(smem + kOffRing);
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
+  const int wg = tid / 128;
   const int lane = tid % 32;
-  const int gq = lane / 4;  // mma groupID
-  const int tq = lane % 4;  // mma threadID_in_group
-  const int mt = warp / 4;  // row tile: rows 16 mt .. 16 mt + 15
-  const int np = warp % 4;  // columns 32 np .. 32 np + 31 of a tile
-  const int m0 = blockIdx.x * kBM;
-  const bool ffn = p.w1.w != nullptr;
-  const bool tail = p.q.w != nullptr;
-  const int n_tiles = kSlices * kSlices +
-                      (ffn ? (p.I / kTile) * 2 * kSlices : 0) +
-                      (tail ? (p.Nq / kTile) * kSlices : 0);
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int r0 = 16 * ((tid % 128) / 32) + g8;  // rows r0, r0 + 8
+  const int r = static_cast<int>(cluster_rank());
+  const int half = r / NI, slice = r % NI;
+  const int m0 = (blockIdx.x / R) * kBM;
+  const int M = p.M;
 
+  // this CTA's work (ops/_plan.cta_work mirrors it): tiles [tA0, tA0 +
+  // nA) of the out-projection's columns, which are the columns [own0,
+  // own1) of y it normalises and writes; chunks [ch0, ch0 + nch) of the
+  // intermediate; FFN2's columns [384 half, + 384); tail tiles [tC0, tC0
+  // + nT). Every CTA of the cluster runs as many steps (stage counts
+  // from the largest share).
+  const int tA0 = kTiles * r / R;
+  const int nA = kTiles * (r + 1) / R - tA0;
+  const int nsA = stages_for((kTiles + R - 1) / R);
+  const int own0 = kH * r / R, own1 = kH * (r + 1) / R;
+  const int n_ch = p.ffn ? p.I / kChunk : 0;
+  const int ch0 = n_ch * slice / NI;
+  const int nch = n_ch / NI;
+  const int n_t = p.has_tail ? p.Nq / 64 : 0;
+  const int tC0 = n_t * r / R;
+  const int nT = n_t * (r + 1) / R - tC0;
+  const int nT_max = (n_t + R - 1) / R;
+  const int n_full = nT_max / 6, rest = nT_max - 6 * n_full;
+  const int stepsA = kKSteps * nsA;
+  const int stepsB = 9 * nch;
+  const int stepsC = 24 * n_full + (rest ? kKSteps * stages_for(rest) : 0);
+  Ring<kStages> ring;
+  ring.init(smem_u32(smem + kOffBar));
+  if (tid == 0) fence_mbar_init();
+  cluster_sync();
+
+  // producer: step u's boxes; box i = 2 w + b is warpgroup w's b-th
+  auto issue = [&](int u, int slot, uint32_t bar) {
+    const CUtensorMap* map = &p.wo;
+    int kc[4], row[4];
+    bool on[4];
+    if (u < stepsA) {
+      const int kk = u / nsA, s = u % nsA, nA0 = (nA + 1) / 2;
 #pragma unroll
-  for (int t = 0; t < kStages - 1; ++t) {
-    if (t < n_tiles) load_tile(tiles + t * kTileBytes, t, p);
-    cp_async_commit();
+      for (int i = 0; i < 4; ++i) {
+        const int w = i / 2, g = 2 * s + i % 2;
+        on[i] = g < (w ? nA - nA0 : nA0);
+        kc[i] = 64 * kk;
+        row[i] = 64 * (tA0 + (w ? nA0 : 0) + g);
+      }
+    } else if ((u -= stepsA) < stepsB) {
+      const int ch = ch0 + u / 9, s = u % 9;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int w = i / 2, b = i % 2;
+        on[i] = true;
+        if (s < 6) {  // W1 rows of the chunk's warpgroup half, k 2 steps
+          kc[i] = 64 * (2 * s + b);
+          row[i] = kChunk * ch + 64 * w;
+        } else {      // W2: this half's output rows, k of the chunk
+          const int f = 2 * (s - 6) + b;
+          kc[i] = kChunk * ch + 64 * (f / 3);
+          row[i] = 384 * half + 192 * w + 64 * (f % 3);
+        }
+      }
+      map = s < 6 ? &p.w1 : &p.w2;
+    } else {
+      u -= stepsB;
+      int pass = u / 24, v = u % 24, nP = 6;
+      if (pass >= n_full) {
+        pass = n_full;
+        v = u - 24 * n_full;
+        nP = rest;
+      }
+      const int ns = stages_for(nP), kk = v / ns, s = v % ns;
+      const int mine = min(6, max(0, nT - 6 * pass)), m0t = (mine + 1) / 2;
+      map = &p.wq;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int w = i / 2, g = 2 * s + i % 2;
+        on[i] = g < (w ? mine - m0t : m0t);
+        kc[i] = 64 * kk;
+        row[i] = 64 * (tC0 + 6 * pass + (w ? m0t : 0) + g);
+      }
+    }
+    mbar_expect_tx(bar, kBox * (on[0] + on[1] + on[2] + on[3]));
+    const uint32_t dst = ring_u32 + slot * kSlot;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (on[i]) tma_load(dst + i * kBox, map, bar, kc[i], row[i]);
+  };
+
+  // The producer warp asks for the steps in order, as far as the
+  // consumers' releases allow, but joins their cluster barriers at the
+  // end of a phase first (LN1's, then the FFN's partial sums' and LN2's):
+  // before them it may run STAGES - 1 steps into the next phase, whose
+  // slots the last phase's steps released, except into the tail while
+  // the partial sums of a split intermediate use the ring's memory.
+  if (tid >= 256) {  // the producer warp
+    const int total = stepsA + stepsB + stepsC;
+    const bool drain = NI > 1 && p.ffn;
+    const float inv1 = p.ffn ? p.f1.inv : (p.has_tail ? p.q.inv : 0.f);
+    const int mark1 =
+        min(stepsA + kStages - 1, drain ? stepsA + stepsB : total);
+    const int mark2 = max(mark1, min(stepsA + stepsB + (drain ? 0 : kStages - 1),
+                                     total));
+    int u = 0;
+    auto run = [&](int end) {
+      if (tid == 256)
+        for (; u < end; ++u) ring.produce(u, issue);
+      __syncwarp();
+    };
+    run(mark1);
+    for (int i = 0; i < 2 + (inv1 > 0.f); ++i) cluster_sync();
+    if (p.ffn) {
+      run(mark2);
+      for (int i = 0; i < (NI > 1 ? 2 : 0) + 2 + p.has_tail; ++i)
+        cluster_sync();
+    }
+    run(total);
+    cluster_sync();  // the last one
+    return;
   }
 
-  // q(ctx) rows of this CTA into the operand buffer (zeros past M)
-  for (int idx = tid; idx < kBM * (kH / 8); idx += kThreads) {
-    const int r = idx / (kH / 8);
-    const int c = (idx % (kH / 8)) * 8;
+
+  // a byte pair of q(y) into the operand buffer of every CTA of this
+  // row block
+  auto put_q = [&](int off, uint16_t v) {
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+      st_cluster_u16(mapa(q_u32 + off, j), v);
+  };
+  // Each phase's products have accumulators of their own, which only
+  // wgmma writes until the phase's last product (the first k step
+  // starts the sums): an accumulator that other instructions write
+  // between two products makes ptxas serialize every wgmma of the
+  // kernel. An epilogue then leaves its pre-norm values there (float
+  // bits).
+  int accA[3][32], acc[3][32], accT[3][32];
+  auto fence = [&](int (&a)[3][32]) {
+#pragma unroll
+    for (int g = 0; g < 3; ++g) fence_regs(a[g]);
+  };
+  // element e of accumulator tile g: row r0 + 8 ((e >> 1) & 1), column
+  // cb0 + 64 g + 8 (e >> 2) + 2 t4 + (e & 1)
+  //
+  // LayerNorm of the rows whose pre-norm values v holds (float bits) in
+  // tiles g < ng from column cb0, this CTA's columns [own0, own1);
+  // the bf16 outputs to y and, when inv > 0, quantized with inv into the
+  // operand buffer of every CTA of the row block.
+  auto layer_norm = [&](int (&v)[3][32], int ng, int cb0, const float* gam,
+                        const float* bet, float inv) {
+    float s[2] = {0.f, 0.f};
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int c = cb0 + 64 * g + 8 * (e >> 2) + 2 * t4 + (e & 1);
+        s[(e >> 1) & 1] +=
+            g < ng && c >= own0 && c < own1 ? __int_as_float(v[g][e]) : 0.f;
+      }
+    float mu[2], var[2];
+    row_total<R>(s, mu, part, stats, r, wg, r0);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) mu[h] = __fdiv_rn(mu[h], static_cast<float>(kH));
+    float sq[2] = {0.f, 0.f};
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int c = cb0 + 64 * g + 8 * (e >> 2) + 2 * t4 + (e & 1);
+        const float d = __fsub_rn(__int_as_float(v[g][e]), mu[(e >> 1) & 1]);
+        sq[(e >> 1) & 1] = __fadd_rn(
+            sq[(e >> 1) & 1],
+            g < ng && c >= own0 && c < own1 ? __fmul_rn(d, d) : 0.f);
+      }
+    row_total<R>(sq, var, part, stats + 4 * kBM, r, wg, r0);
+    float rstd[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      rstd[h] = rsqrtf(__fadd_rn(__fdiv_rn(var[h], static_cast<float>(kH)),
+                                 p.eps));
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int c = cb0 + 64 * g + 8 * (e >> 2) + 2 * t4;
+        const int h = (e >> 1) & 1, rr = r0 + 8 * h;
+        const float2 ga = ld_f2(gam, min(c, kH - 2)),
+                     be = ld_f2(bet, min(c, kH - 2));
+        if (!(g < ng && c >= own0 && c < own1)) continue;
+        float o[2];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const float n =
+              __fmul_rn(__fsub_rn(__int_as_float(v[g][e + k]), mu[h]), rstd[h]);
+          o[k] = bf16_round(
+              __fadd_rn(__fmul_rn(n, k ? ga.y : ga.x), k ? be.y : be.x));
+        }
+        if (m0 + rr < M)
+          *reinterpret_cast<__nv_bfloat162*>(
+              p.y + static_cast<long long>(m0 + rr) * kH + c) =
+              __floats2bfloat162_rn(o[0], o[1]);
+        if (inv > 0.f)
+          put_q(sw128_offset(rr, c), pack2(quant(o[0], inv), quant(o[1], inv)));
+      }
+    if (inv > 0.f) {
+      fence_async_all();
+      cluster_sync();
+      fence_async_shared();
+    }
+  };
+
+  // 0. q(ctx) of this CTA's rows (zeros past M) into the operand buffer
+  for (int idx = tid; idx < kBM * (kH / 8); idx += 256) {
+    const int rr = idx / (kH / 8), c = (idx % (kH / 8)) * 8;
     uint32_t lo = 0, hi = 0;
-    if (m0 + r < rows.M) {
+    if (m0 + rr < M) {
       const uint4 raw = *reinterpret_cast<const uint4*>(
-          rows.ctx + static_cast<long long>(m0 + r) * kH + c);
-      const __nv_bfloat16* v = reinterpret_cast<const __nv_bfloat16*>(&raw);
+          p.ctx + static_cast<long long>(m0 + rr) * kH + c);
+      const bf16* v = reinterpret_cast<const bf16*>(&raw);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         lo |= (static_cast<uint32_t>(quant(__bfloat162float(v[e]),
@@ -241,223 +412,255 @@ __global__ void __launch_bounds__(kThreads, 1)
                                            p.out.inv)) & 0xffu) << (8 * e);
       }
     }
-    *reinterpret_cast<uint2*>(as + r * kAS + c) = make_uint2(lo, hi);
+    *reinterpret_cast<uint2*>(qbuf + sw128_offset(rr, c)) = make_uint2(lo, hi);
   }
+  fence_async_shared();
+  consumer_sync();
 
-  // Waits for tile t, then starts the copy of tile t + kStages - 1 into
-  // the stage every warp has finished reading (tile t - 1's); returns
-  // tile t. Its barrier also publishes the shared operands written
-  // before it.
-  auto next_tile = [&](int t) -> const int8_t* {
-    cp_async_wait_ring();
-    __syncthreads();
-    const int ahead = t + kStages - 1;
-    if (ahead < n_tiles)
-      load_tile(tiles + (ahead % kStages) * kTileBytes, ahead, p);
-    cp_async_commit();
-    return tiles + (t % kStages) * kTileBytes;
+  // descriptors: the operand's k step kk, 32-byte half j; step slot's
+  // box b of this warpgroup, half j
+  auto desc_q = [&](int kk, int j) {
+    return desc_sw128(q_u32 + (kk >> 1) * 8192 + (kk & 1) * 64 + 32 * j);
   };
-  // c[j] += a (this warp's 16 rows, 128 k from column k0 of `a`, row
-  // stride `sa`) . tile (rows 32 np + 8 j .., the same 128 k)^T
-  auto mma_tile = [&](int (*c)[4], const int8_t* a, int sa, int k0,
-                      const int8_t* tile) {
-#pragma unroll
-    for (int kk = 0; kk < kTile; kk += 32) {
-      const int8_t* ab = a + (16 * mt + gq) * sa + k0 + kk + 4 * tq;
-      uint32_t af[4] = {ld32(ab), ld32(ab + 8 * sa), ld32(ab + 16),
-                        ld32(ab + 8 * sa + 16)};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int8_t* bb = tile + (32 * np + 8 * j + gq) * kTS + kk + 4 * tq;
-        uint32_t bf[2] = {ld32(bb), ld32(bb + 16)};
-        mma_s8(c[j], af, bf);
-      }
-    }
+  auto desc_w = [&](int slot, int b, int j) {
+    return desc_sw64(ring_u32 + slot * kSlot + (2 * wg + b) * kBox + 32 * j);
   };
 
-  // acc[s][j][e] sits at row 16 mt + 8 (e / 2) + gq, column
-  // 128 s + 32 np + 8 j + 2 tq + e % 2
-  int acc[kSlices][4][4];
-#pragma unroll
-  for (int s = 0; s < kSlices; ++s)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[s][j][e] = 0;
-
-  // a row's total over its quad, then over the 4 warps of its row tile,
-  // divided by 768
-  auto row_mean = [&](float* v, float* buf, float* mean) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float s = v[h];
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      s += __shfl_xor_sync(0xffffffffu, s, 2);
-      if (tq == 0) buf[(16 * mt + 8 * h + gq) * 4 + np] = s;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float* b = buf + (16 * mt + 8 * h + gq) * 4;
-      mean[h] = __fdiv_rn(b[0] + b[1] + b[2] + b[3], static_cast<float>(kH));
-    }
-  };
-  // LayerNorm of the 768-wide rows whose bf16-rounded pre-norm values
-  // acc holds as float bits; leaves the bf16-rounded outputs there.
-  // Its barriers also tell that every warp is done with the products.
-  auto layer_norm = [&](const float* g, const float* be) {
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int s = 0; s < kSlices; ++s)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sum[e / 2] += __int_as_float(acc[s][j][e]);
-    float mu[2], rstd[2];
-    row_mean(sum, red, mu);
-    float sq[2] = {0.f, 0.f};
-#pragma unroll
-    for (int s = 0; s < kSlices; ++s)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float d = __fsub_rn(__int_as_float(acc[s][j][e]), mu[e / 2]);
-          sq[e / 2] = __fadd_rn(sq[e / 2], __fmul_rn(d, d));
-        }
-    row_mean(sq, red + kBM * 4, rstd);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) rstd[h] = rsqrtf(__fadd_rn(rstd[h], p.eps));
-#pragma unroll
-    for (int s = 0; s < kSlices; ++s)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = s * kTile + 32 * np + 8 * j + 2 * tq + e % 2;
-          const float n = __fmul_rn(
-              __fsub_rn(__int_as_float(acc[s][j][e]), mu[e / 2]),
-              rstd[e / 2]);
-          acc[s][j][e] = __float_as_int(
-              bf16_round(__fadd_rn(__fmul_rn(n, g[c]), be[c])));
-        }
-  };
-  // the LayerNorm outputs in acc: to y when `last`, as bf16 into y1s
-  // when `keep`, and quantized with `inv` into the operand buffer
-  auto store = [&](bool last, bool keep, bool quantize, float inv) {
-#pragma unroll
-    for (int s = 0; s < kSlices; ++s)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = 16 * mt + 8 * h + gq;
-          const int c = s * kTile + 32 * np + 8 * j + 2 * tq;
-          const float v0 = __int_as_float(acc[s][j][2 * h]);
-          const float v1 = __int_as_float(acc[s][j][2 * h + 1]);
-          const __nv_bfloat162 v = __floats2bfloat162_rn(v0, v1);
-          if (last && m0 + r < rows.M)
-            *reinterpret_cast<__nv_bfloat162*>(
-                rows.y + static_cast<long long>(m0 + r) * kH + c) = v;
-          if (keep)
-            *reinterpret_cast<__nv_bfloat162*>(y1s + r * kYS + c) = v;
-          if (quantize)
-            *reinterpret_cast<uint16_t*>(as + r * kAS + c) =
-                pack2(quant(v0, inv), quant(v1, inv));
-        }
-  };
-
-  // 1. out-projection, + x, LN1
+  // 1. out-projection: this CTA's tiles, + x, LN1
   int t = 0;
-  for (int kt = 0; kt < kSlices; ++kt) {
+  {
+    const int nA0 = (nA + 1) / 2;
+    const int nAw = wg ? nA - nA0 : nA0, cbA = 64 * (tA0 + (wg ? nA0 : 0));
+    for (int kk = 0; kk < kKSteps; ++kk) {
 #pragma unroll
-    for (int s = 0; s < kSlices; ++s, ++t)
-      mma_tile(acc[s], as, kAS, kt * kTile, next_tile(t));
-  }
+      for (int s = 0; s < 2; ++s) {
+        if (s >= nsA) break;  // the same for the whole CTA
+        const int slot = ring.wait(t);
+        wgmma_fence();
+        fence(accA);
+        // stage 0: tiles 0 and 1, stage 1: tile 2, whether or not this
+        // warpgroup has them (their sums are not used): a wgmma on a
+        // path that a warpgroup may not take makes ptxas serialize them
 #pragma unroll
-  for (int s = 0; s < kSlices; ++s)
+        for (int b = 0; b < 2 - s; ++b)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = m0 + 16 * mt + 8 * (e / 2) + gq;
-        const int c = s * kTile + 32 * np + 8 * j + 2 * tq + e % 2;
-        const float xv = row < rows.M
-            ? __bfloat162float(rows.x[static_cast<long long>(row) * kH + c])
-            : 0.f;
-        acc[s][j][e] = __float_as_int(
-            bf16_round(__fadd_rn(dequant(acc[s][j][e], p.out, c), xv)));
+          for (int j = 0; j < 2; ++j)
+            wgmma_s8_ss(accA[2 * s + b], desc_q(kk, j), desc_w(slot, b, j),
+                        kk > 0 || j > 0);
+        wgmma_commit();
+        fence(accA);
+        wgmma_wait<1>();
+        ring.release(t++);
       }
-  layer_norm(p.g1, p.be1);
-  store(!ffn, ffn, ffn || tail, ffn ? p.w1.inv : p.q.inv);
-
-  // 2. FFN, chunk by chunk of the intermediate; + y1, LN2
-  if (ffn) {
-#pragma unroll
-    for (int s = 0; s < kSlices; ++s)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[s][j][e] = 0;
-    for (int c0 = 0; c0 < p.I; c0 += kTile) {
-      int hacc[4][4] = {};
-      for (int kt = 0; kt < kSlices; ++kt, ++t)
-        mma_tile(hacc, as, kAS, kt * kTile, next_tile(t));
-      // deq, bf16, gelu, bf16, q: into hs (read after the next barrier)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = 16 * mt + 8 * h + gq;
-          const int c = 32 * np + 8 * j + 2 * tq;
-          int q2[2];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float a1 = dequant(hacc[j][2 * h + e], p.w1, c0 + c + e);
-            q2[e] = quant(bf16_round(gelu_tanh(a1)), p.w2.inv);
-          }
-          *reinterpret_cast<uint16_t*>(hs + r * kTS + c) = pack2(q2[0], q2[1]);
-        }
-#pragma unroll
-      for (int s = 0; s < kSlices; ++s, ++t)
-        mma_tile(acc[s], hs, kTS, 0, next_tile(t));
     }
+    wgmma_wait<0>();
+    fence(accA);
 #pragma unroll
-    for (int s = 0; s < kSlices; ++s)
+    for (int g = 0; g < 3; ++g)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = 16 * mt + 8 * (e / 2) + gq;
-          const int c = s * kTile + 32 * np + 8 * j + 2 * tq + e % 2;
-          acc[s][j][e] = __float_as_int(bf16_round(__fadd_rn(
-              dequant(acc[s][j][e], p.w2, c),
-              __bfloat162float(y1s[r * kYS + c]))));
-        }
-    layer_norm(p.g2, p.be2);
-    store(true, false, tail, p.q.inv);
+      for (int e = 0; e < 32; e += 2) {
+        // rows past M and tiles past nAw read a valid element, unused
+        const int rr = min(m0 + r0 + 8 * ((e >> 1) & 1), M - 1);
+        const int c = min(cbA + 64 * g + 8 * (e >> 2) + 2 * t4, kH - 2);
+        const float2 xv = ld_bf2(p.x, static_cast<long long>(rr) * kH + c);
+        const float2 so = ld_f2(p.out.so, c), b = ld_f2(p.out.b, c);
+        accA[g][e] = __float_as_int(
+            bf16_round(__fadd_rn(dequant(accA[g][e], so.x, b.x), xv.x)));
+        accA[g][e + 1] = __float_as_int(
+            bf16_round(__fadd_rn(dequant(accA[g][e + 1], so.y, b.y), xv.y)));
+      }
+    // y1 goes to y (the FFN's residual, read back by its owner) or is y
+    layer_norm(accA, nAw, cbA, p.g1, p.be1,
+               p.ffn ? p.f1.inv : (p.has_tail ? p.q.inv : 0.f));
   }
 
-  // 3. tail: the next module's projection of y, 128 columns at a time
-  if (tail) {
-    for (int n0 = 0; n0 < p.Nq; n0 += kTile) {
-      int hacc[4][4] = {};
-      for (int kt = 0; kt < kSlices; ++kt, ++t)
-        mma_tile(hacc, as, kAS, kt * kTile, next_tile(t));
+  // 2. FFN over this CTA's chunks of the intermediate (both column
+  // halves compute each chunk's h; each multiplies it into its own 384
+  // columns); + y1, LN2
+  if (p.ffn) {
+    int hacc[32];
+    for (int ci = 0; ci < nch; ++ci) {
+      const int ch = ch0 + ci;
+      // h chunk: this warpgroup's 64 of its 128 columns, k 2 steps a
+      // stage (the first product starts the sums)
+      for (int s = 0; s < 6; ++s) {
+        const int slot = ring.wait(t);
+        wgmma_fence();
+        fence_regs(hacc);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+        for (int b = 0; b < 2; ++b)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = m0 + 16 * mt + 8 * h + gq;
-          const int c = n0 + 32 * np + 8 * j + 2 * tq;
-          if (row >= rows.M) continue;
-          *reinterpret_cast<__nv_bfloat162*>(
-              rows.tail + static_cast<long long>(row) * p.Nq + c) =
-              __floats2bfloat162_rn(dequant(hacc[j][2 * h], p.q, c),
-                                    dequant(hacc[j][2 * h + 1], p.q, c + 1));
+          for (int j = 0; j < 2; ++j)
+            wgmma_s8_ss(hacc, desc_q(2 * s + b, j), desc_w(slot, b, j),
+                        s > 0 || b > 0 || j > 0);
+        wgmma_commit();
+        fence_regs(hacc);
+        wgmma_wait<1>();
+        ring.release(t++);
+      }
+      wgmma_wait<0>();
+      fence_regs(hacc);
+      consumer_sync();  // both warpgroups are done with the last h chunk
+      // deq, bf16, gelu, bf16, q into the h chunk
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int rr = r0 + 8 * ((e >> 1) & 1);
+        const int c = 64 * wg + 8 * (e >> 2) + 2 * t4;
+        const float2 so = ld_f2(p.f1.so, kChunk * ch + c),
+                     b = ld_f2(p.f1.b, kChunk * ch + c);
+        int qv[2];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const float a1 = dequant(hacc[e + k], k ? so.y : so.x, k ? b.y : b.x);
+          qv[k] = quant(bf16_round(gelu_tanh(a1)), p.f2.inv);
+        }
+        *reinterpret_cast<uint16_t*>(hbuf + sw128_offset(rr, c)) =
+            pack2(qv[0], qv[1]);
+      }
+      fence_async_shared();
+      consumer_sync();  // the whole chunk is in hbuf
+      // this half's FFN2 sums += h chunk . W2[half, chunk]^T: box f =
+      // 2 s + b of a warpgroup is k half f / 3, tile f % 3
+#pragma unroll
+      for (int s = 0; s < 3; ++s) {
+        const int slot = ring.wait(t);
+        wgmma_fence();
+        fence(acc);
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const int f = 2 * s + b, ks = f / 3;
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            wgmma_s8_ss(acc[f % 3], desc_sw128(h_u32 + 64 * ks + 32 * j),
+                        desc_w(slot, b, j), ci > 0 || ks > 0 || j > 0);
+        }
+        wgmma_commit();
+        fence(acc);
+        wgmma_wait<1>();
+        ring.release(t++);
+      }
+    }
+    wgmma_wait<0>();
+    fence(acc);
+    const int cbB = 384 * half + 192 * wg;
+    if (NI > 1) {
+      // the partial sums of this half's columns to the slice that owns
+      // them (in the ring's memory, which the cluster is done with)
+      constexpr int W = 384 / NI;
+      cluster_sync();
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+#pragma unroll
+        for (int e = 0; e < 32; e += 2) {
+          const int rr = r0 + 8 * ((e >> 1) & 1);
+          const int c = cbB + 64 * g + 8 * (e >> 2) + 2 * t4;
+          const int o = (c - 384 * half) / W;
+          if (o == slice) continue;
+          const int sl = slice < o ? slice : slice - 1;
+          st_cluster_v2(
+              mapa(ring_u32 + ((sl * kBM + rr) * W + c - 384 * half - o * W) * 4,
+                   half * NI + o),
+              acc[g][e], acc[g][e + 1]);
+        }
+      cluster_sync();
+      const int* recv = reinterpret_cast<const int*>(smem + kOffRing);
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int rr = r0 + 8 * ((e >> 1) & 1);
+          const int c = cbB + 64 * g + 8 * (e >> 2) + 2 * t4 + (e & 1);
+          // another CTA's columns read a valid element, unused
+          const int cl = min(max(c - own0, 0), W - 1);
+#pragma unroll
+          for (int sl = 0; sl < NI - 1; ++sl)
+            acc[g][e] += recv[(sl * kBM + rr) * W + cl];
         }
     }
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        // rows past M read a valid row, unused
+        const int rr = min(m0 + r0 + 8 * ((e >> 1) & 1), M - 1);
+        const int c = cbB + 64 * g + 8 * (e >> 2) + 2 * t4;
+        const float2 y1 = ld_bf2(p.y, static_cast<long long>(rr) * kH + c);
+        const float2 so = ld_f2(p.f2.so, c), b = ld_f2(p.f2.b, c);
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          acc[g][e + k] = __float_as_int(bf16_round(__fadd_rn(
+              dequant(acc[g][e + k], k ? so.y : so.x, k ? b.y : b.x),
+              k ? y1.y : y1.x)));
+        }
+      }
+    layer_norm(acc, 3, cbB, p.g2, p.be2, p.has_tail ? p.q.inv : 0.f);
   }
+
+  // 3. tail: the next module's projection of y, this CTA's tiles in
+  // passes of up to 6 (3 a warpgroup)
+  for (int pass = 0; 6 * pass < nT_max; ++pass) {
+    const int nP = min(6, nT_max - 6 * pass), ns = stages_for(nP);
+    const int mine = min(6, max(0, nT - 6 * pass)), m0t = (mine + 1) / 2;
+    const int nPw = wg ? mine - m0t : m0t;
+    const int cb = 64 * (tC0 + 6 * pass + (wg ? m0t : 0));
+    for (int kk = 0; kk < kKSteps; ++kk) {
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        if (s >= ns) break;  // the same for the whole CTA
+        const int slot = ring.wait(t);
+        wgmma_fence();
+        fence(accT);
+        // stage 0: tiles 0 and 1, stage 1: tile 2, whether or not this
+        // warpgroup has them (their sums are not used): a wgmma on a
+        // path that a warpgroup may not take makes ptxas serialize them
+#pragma unroll
+        for (int b = 0; b < 2 - s; ++b)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            wgmma_s8_ss(accT[2 * s + b], desc_q(kk, j), desc_w(slot, b, j),
+                        kk > 0 || j > 0);
+        wgmma_commit();
+        fence(accT);
+        wgmma_wait<1>();
+        ring.release(t++);
+      }
+    }
+    wgmma_wait<0>();
+    fence(accT);
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int e = 0; e < 32; e += 2) {
+        const int rr = r0 + 8 * ((e >> 1) & 1);
+        const int c = cb + 64 * g + 8 * (e >> 2) + 2 * t4;
+        const float2 so = ld_f2(p.q.so, min(c, p.Nq - 2)),
+                     b = ld_f2(p.q.b, min(c, p.Nq - 2));
+        if (g >= nPw || m0 + rr >= M) continue;
+        *reinterpret_cast<__nv_bfloat162*>(
+            p.tail + static_cast<long long>(m0 + rr) * p.Nq + c) =
+            __floats2bfloat162_rn(dequant(accT[g][e], so.x, b.x),
+                                  dequant(accT[g][e + 1], so.y, b.y));
+      }
+  }
+  // no CTA leaves while another may still write to its shared memory
+  cluster_sync();
+}
+
+template <int NI>
+int launch(const Params& p, cudaStream_t stream) {
+  auto kernel = fused_block_kernel<NI>;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    attr_set = true;
+  }
+  const int blocks = (p.M + kBM - 1) / kBM;
+  const cudaError_t err = launch_clusters(kernel, blocks * 2 * NI, kThreads,
+                                          kSmem, 2 * NI, stream, p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -469,7 +672,9 @@ extern "C" {
 // be2 (768,) fp32; y (M, 768) and tail (M, Nq) bf16. w1 null: no FFN (w2,
 // so_1, ..., be2 unused); wq null: no tail. I and Nq multiples of 128,
 // every pointer to rows and weights 16-byte aligned. inv_*: the static
-// input scale of each product. Returns the launch's cudaError_t (0 on
+// input scale of each product. split (1 or 2, dividing I / 128): the
+// slices of the intermediate a row block's cluster of 2 x split CTAs
+// takes (ops/_plan.launch_plan). Returns the launch's cudaError_t (0 on
 // success).
 int fused_block_launch(const void* ctx, const void* x, const void* wo,
                        const void* so_o, const void* b_o, const void* g1,
@@ -479,30 +684,42 @@ int fused_block_launch(const void* ctx, const void* x, const void* wo,
                        const void* wq, const void* so_q, const void* b_q,
                        void* y, void* tail, int M, int I, int Nq,
                        float inv_out, float inv_1, float inv_2, float inv_q,
-                       float eps, void* stream) {
-  if (M < 1 || (w1 && (I < kTile || I % kTile != 0)) ||
-      (wq && (Nq < kTile || Nq % kTile != 0)))
+                       float eps, int split, void* stream) {
+  if (M < 1 || (w1 && (I < kChunk || I % kChunk != 0)) ||
+      (wq && (Nq < 128 || Nq % 128 != 0)) ||
+      (w1 && (I / kChunk) % split != 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
   auto f = [](const void* v) { return static_cast<const float*>(v); };
-  auto dense = [&](const void* w, const void* so, const void* b, float inv) {
-    return Dense{static_cast<const int8_t*>(w), f(so), f(b), inv};
-  };
-  const Rows rows{static_cast<const __nv_bfloat16*>(ctx),
-                  static_cast<const __nv_bfloat16*>(x),
-                  static_cast<__nv_bfloat16*>(y),
-                  static_cast<__nv_bfloat16*>(tail), M};
-  const Block p{dense(wo, so_o, b_o, inv_out),
-                dense(w1, so_1, b_1, inv_1),
-                dense(w2, so_2, b_2, inv_2),
-                dense(wq, so_q, b_q, inv_q),
-                f(g1), f(be1), f(g2), f(be2), I, Nq, eps};
-  fused_block_kernel<<<(M + kBM - 1) / kBM, kThreads, kSmemBytes,
-                       static_cast<cudaStream_t>(stream)>>>(rows, p);
-  return static_cast<int>(cudaGetLastError());
+  Params p;
+  if (!weight_map(&p.wo, wo, kH, kH, false, 64) ||
+      (w1 && (!weight_map(&p.w1, w1, I, kH, false, 64) ||
+              !weight_map(&p.w2, w2, kH, I, false, 64))) ||
+      (wq && !weight_map(&p.wq, wq, Nq, kH, false, 64)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!w1) p.w1 = p.w2 = p.wo;
+  if (!wq) p.wq = p.wo;
+  p.ctx = static_cast<const bf16*>(ctx);
+  p.x = static_cast<const bf16*>(x);
+  p.y = static_cast<bf16*>(y);
+  p.tail = static_cast<bf16*>(tail);
+  p.out = Dense{f(so_o), f(b_o), inv_out};
+  p.f1 = Dense{f(so_1), f(b_1), inv_1};
+  p.f2 = Dense{f(so_2), f(b_2), inv_2};
+  p.q = Dense{f(so_q), f(b_q), inv_q};
+  p.g1 = f(g1);
+  p.be1 = f(be1);
+  p.g2 = f(g2);
+  p.be2 = f(be2);
+  p.M = M;
+  p.I = w1 ? I : 0;
+  p.Nq = wq ? Nq : 0;
+  p.ffn = w1 != nullptr;
+  p.has_tail = wq != nullptr;
+  p.eps = eps;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (split == 1) return launch<1>(p, s);
+  if (split == 2) return launch<2>(p, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* fused_block_error_string(int code) {

@@ -68,20 +68,14 @@
 // padding there, but those shapes are bound by reading w, which the
 // ring streams.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <mutex>
-#include <vector>
+#include "hopper.cuh"
 
 namespace {
 
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 
 constexpr int kBK = 64;     // K values (bytes of int8) per step
-constexpr int kSms = 132;   // SMs of an H100 SXM
 
 // WGS consumer warpgroups (64 rows each); NI the wgmma's N, NSUB wgmmas
 // side by side per k step: a BM x BN output tile.
@@ -101,88 +95,6 @@ struct Tile {
   static_assert(BM * kOutRow <= 2 * kSlot,
                 "the output tile fits the two stages a prologue leaves");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-// one arrival that also expects `bytes` of TMA transactions
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-// Waits for the phase after `parity` of the barrier. A wait that never
-// ends (a fault in the pipeline) traps instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (long long spin = 0;; ++spin) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spin > (1ll << 24)) asm volatile("trap;\n");
-  }
-}
-
-// TMA: the box at (c0 along K, c1 along rows) of `map` into shared memory
-// at dst, completing on `bar`; elements past the tensor's edge land as 0
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// this thread's shared-memory writes -> visible to wgmma (async proxy)
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of accumulators across
-// the asynchronous wgmma (CUTLASS's warpgroup_fence_operand).
-template <int R>
-__device__ __forceinline__ void fence_regs(int (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-// Shared-memory matrix descriptor of a K-major tile in the 64-byte
-// swizzle: rows of 64 bytes, 8-row groups 512 bytes apart (SBO); the
-// leading offset is unused for a swizzled K-major operand.
-__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(512 >> 4) << 32) |
-         (static_cast<uint64_t>(2) << 62);
-}
 
 #define I8_ACC8(i)                                                    \
   "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]),         \
@@ -475,73 +387,6 @@ __global__ void __launch_bounds__(128 * WGS, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, looked up in libcuda at run time (no -lcuda
-// at build time)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// A (rows, K) row-major tensor cut in boxes of 64 K values x box_rows.
-bool encode(CUtensorMap* map, const void* ptr, int rows, int K, bool bf16_,
-            int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const int elem = bf16_ ? 2 : 1;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * elem};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kBK),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t unit[2] = {1, 1};
-  return fn(map,
-            bf16_ ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                  : CU_TENSOR_MAP_DATA_TYPE_UINT8,
-            2, const_cast<void*>(ptr), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE,
-            bf16_ ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// The weights' descriptors, built once per (weight, tile width): a
-// descriptor holds only the address and the shape.
-struct WeightMap {
-  const void* w;
-  int N, K, box;
-  CUtensorMap map;
-};
-
-bool weight_map(CUtensorMap* map, const void* w, int N, int K, int box) {
-  static std::mutex lock;
-  static std::vector<WeightMap> cache;
-  std::lock_guard<std::mutex> guard(lock);
-  for (const WeightMap& e : cache)
-    if (e.w == w && e.N == N && e.K == K && e.box == box) {
-      *map = e.map;
-      return true;
-    }
-  if (!encode(map, w, N, K, false, box)) return false;
-  if (cache.size() >= 4096) cache.clear();
-  cache.push_back({w, N, K, box, *map});
-  return true;
-}
-
 template <int WGS, int NI, int NSUB, int STAGES>
 int launch_tile(const void* x, const void* w, const void* col_scale,
                 const void* bias, void* out, int M, int N, int K,
@@ -557,7 +402,7 @@ int launch_tile(const void* x, const void* w, const void* col_scale,
   }
   CUtensorMap tmx, tmw;
   if (!encode(&tmx, x, M, K, true, T::BM) ||
-      !weight_map(&tmw, w, N, K, T::BN))
+      !weight_map(&tmw, w, N, K, false, T::BN))
     return static_cast<int>(cudaErrorInvalidValue);
   // as many CTAs as the card runs at once (1, 3 or 4 an SM, by shared
   // memory), each over an equal run of tiles

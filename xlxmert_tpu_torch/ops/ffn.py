@@ -32,14 +32,15 @@ import torch
 
 from xlxmert_tpu_torch.ops._build import Kernel
 from xlxmert_tpu_torch.ops._grad import forward_only
+from xlxmert_tpu_torch.ops._plan import launch_plan
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = Kernel("fused_ffn", "fused_ffn.cu",
                 [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I,
-                 _P])
+                 _I, _P])
 
 HIDDEN = 768      # the kernel's row width (every LXMERT configuration)
-CHUNK = 64        # the intermediate is taken in chunks of this width
+CHUNK = 64        # the kernel takes an intermediate in multiples of this
 _SQRT_2_OVER_PI = float(np.sqrt(2 / np.pi).astype(np.float32))
 _SQRT_HALF = float(np.sqrt(0.5).astype(np.float32))
 
@@ -126,6 +127,6 @@ def _fused_ffn_forward(x, w1, b1, w2, b2, ln_scale, ln_bias,
         KERNEL.launch(
             x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             b2.data_ptr(), g.data_ptr(), be.data_ptr(), out.data_ptr(), M,
-            I, float(eps), int(bool(approx_gelu)),
+            I, float(eps), int(bool(approx_gelu)), launch_plan(M, I),
             torch.cuda.current_stream(dev).cuda_stream)
     return out.reshape(x.shape)

@@ -36,13 +36,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from xlxmert_tpu_torch.ops._build import Kernel
+from xlxmert_tpu_torch.ops._plan import launch_plan
 from xlxmert_tpu_torch.ops.int8_matmul import int8_dense_reference
 from xlxmert_tpu_torch.ops.quant import QuantWeight
 from xlxmert_tpu_torch.serving.lxmert_int8 import layer_norm
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNEL = Kernel("fused_block", "fused_block.cu",
-                [_P] * 20 + [_I] * 3 + [_F] * 5 + [_P])
+                [_P] * 20 + [_I] * 3 + [_F] * 5 + [_I, _P])
 
 HIDDEN = 768      # the kernel's row width (every LXMERT configuration)
 TILE = 128        # the FFN and tail widths are taken in tiles of this width
@@ -151,8 +152,8 @@ def fused_block(ctx: torch.Tensor, x: torch.Tensor, out_w: FusedWeight,
                 tail_w: Optional[FusedWeight] = None,
                 has_ffn: bool = True):
     """Run the fused chain over rows; the JAX wrapper's signature without
-    its `block_rows`, a TPU VMEM knob: the kernel's rows per CTA (32)
-    are a constant of csrc/fused_block.cu.
+    its `block_rows`, a TPU VMEM knob: the kernel takes 64 rows a CTA in
+    clusters of `ops/_plan.launch_plan`'s shape.
 
     ctx: (..., 768) attention context (before the out-projection), bf16.
     x:   (..., 768) residual (the module's input), bf16.
@@ -218,7 +219,7 @@ def fused_block(ctx: torch.Tensor, x: torch.Tensor, out_w: FusedWeight,
             ln1_b.data_ptr(), *ptrs(w1), *ptrs(w2), *ln2, *ptrs(tail_w),
             y.data_ptr(), None if tail is None else tail.data_ptr(), M, I,
             Nq, out_w.inv_a, inv(w1), inv(w2), inv(tail_w), EPS,
-            torch.cuda.current_stream(dev).cuda_stream)
+            launch_plan(M, I), torch.cuda.current_stream(dev).cuda_stream)
     y = y.reshape(*lead, H)
     if tail is None:
         return y
