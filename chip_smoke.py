@@ -98,6 +98,27 @@ Phases, each of which fails the script on error:
       card's busy time; each task's dropout-free step on the card against
       the CPU with injected masks at B=8, held to STEP_BARS, with the same
       parameters left without a gradient;
+  (j) text-to-image at bench.py Config #2's widths (LxmertConfig(),
+      10,000 random centroids randn x 0.1, B=64, text 20, an 8x8 grid,
+      the SPADE generator at base 32, target 256, codebook 256, bf16),
+      from JAX-format files made from --seed through
+      cli/sample_images.sample_images(), 3 batches a run: NAR 4 steps
+      int8 and bf16, each rendered exactly and with --fast_render; AR 64
+      steps (confidence) int8 and bf16; AR TLBR int8. Launches checked
+      exactly (the int8 sampler: its calibration forwards, a language
+      stack a batch, a fixed count a decode step; the bf16 sampler
+      none); NAR and AR semantics from the card's own steps (the masked
+      counts, one commit a cell, the final ids the commits, the codes
+      their centroids); the steps of one int8 and one bf16 NAR run for 2
+      sentences through the same engine on the CPU, teacher-forced
+      (cluster logits' cosine > 0.99, >= 90 % of cells with the card's
+      argmax among the CPU's tied maxima); the card's bf16 render of the
+      final grids against an fp32 render on the CPU (mean |d| <= 2e-2 of
+      [0, 1], cosine > 0.99); samples/s, the render's ms, and one int8
+      NAR and AR decode step's device time by kernel and glue, its busy
+      share and wall time (torch.profiler). Phase (b) also holds
+      mha_blhd and the int8 dense (N = 10,000 included) to their plain
+      versions at every shape of the int8 sampler;
   (d) one JSON line listing the kernels (times per serving forward of
       the length mix; mha_blhd_train's per training step, mha_hbatch's
       per layout forward), then the device line last.
@@ -416,14 +437,17 @@ def _qkv_bias(torch, rng, B, lq, lk, HD, dtype, with_bias):
     return qkv[..., :HD], kv[..., :HD], kv[..., HD:], bias
 
 
-def check_attention(torch, F, attention, cfg, rng, log, name="mha_blhd"):
+def check_attention(torch, F, attention, cfg, rng, log, name="mha_blhd",
+                    cases=None):
     """mha_blhd on column slices of fused projections with a (B, 1, 1, Lk)
     bias, or fused_mha on contiguous (B, H, L, D) operands, as the TPU
-    kernel takes them, with a (B, Lk) bias; SDPA on the same heads."""
+    kernel takes them, with a (B, Lk) bias; SDPA on the same heads. At
+    `cases` (attention_cases' form; default: the serving paths')."""
     H, HD = cfg.num_attention_heads, cfg.hidden_size
     D = HD // H
     packed = name == "mha_blhd"
-    cases = (attention_cases if packed else fused_mha_cases)(cfg, BATCH)
+    if cases is None:
+        cases = (attention_cases if packed else fused_mha_cases)(cfg, BATCH)
     rows = []
     for B, lq, lk, with_bias, dt, fast, uses in cases:
         dtype = getattr(torch, dt)
@@ -933,7 +957,7 @@ def dense_cases(cfg, B, n_answers):
 
 
 def check_int8(torch, int8_matmul, quant, cfg, B, n_answers, rng, log,
-               device="cuda"):
+               device="cuda", cases=None):
     """int8_dense against int8_dense_reference, bit for bit, at every
     shape of the paths (dense_cases). The kernel, its plain version and
     torch._int_mm (the int8 product alone: no quantization, no
@@ -941,10 +965,12 @@ def check_int8(torch, int8_matmul, quant, cfg, B, n_answers, rng, log,
     where it takes the shape) are timed with the card's queue kept full
     (queued_times: at the text shapes a call takes the host about as
     long as the card takes for it); the kernel also back to back
-    (enqueue_ms)."""
+    (enqueue_ms). At `cases` (dense_cases' form; default: the serving
+    and fine-tuning paths')."""
     rows = []
     weights = {}
-    for M, K, N, static, uses in dense_cases(cfg, B, n_answers):
+    for M, K, N, static, uses in (dense_cases(cfg, B, n_answers)
+                                  if cases is None else cases):
         if (K, N) not in weights:
             w = torch.randn(K, N, generator=rng, device=device) * 0.02
             b = torch.randn(N, generator=rng, device=device) * 0.02
@@ -2187,6 +2213,605 @@ def run_pretrain_path(torch, args, kernels, log, cfg=None, device="cuda",
     return out
 
 
+# ---------------------------------------------------------------------------
+# (j) text-to-image
+# ---------------------------------------------------------------------------
+
+# bench.py's Config #2: NAR mask-predict, 4 steps, an 8x8 grid, 10,000
+# codes, B=64, text 20, a 256-pixel SPADE render (base 32, codebook 256)
+SAMPLE_SIZES = dict(batch=64, text=20, batches=3, grid=8, nar_steps=4,
+                    clusters=10000, check=2, base_dim=32, target_size=256,
+                    codebook_dim=256)
+# each run of cli/sample_images.sample_images: its flags; "NAR int8" is
+# Config #2's shape (the int8 sampler and the exact render)
+SAMPLE_RUNS = {
+    "NAR int8": ["--int8"],
+    "NAR int8 fast_render": ["--int8", "--fast_render"],
+    "NAR bf16": [],
+    "NAR bf16 fast_render": ["--fast_render"],
+    "AR int8": ["--int8", "--sample_mode", "AR"],
+    "AR bf16": ["--sample_mode", "AR"],
+    "AR int8 TLBR": ["--int8", "--sample_mode", "AR", "--position_strategy",
+                     "TLBR"],
+}
+# the runs whose steps are held to the CPU's, teacher-forced
+SAMPLE_CHECKED = ("NAR int8", "NAR bf16")
+SAMPLE_COSINE = 0.99   # a step's cluster logits, card against CPU
+SAMPLE_AGREE = 0.9     # share of cells whose card argmax the CPU ties
+RENDER_MEAN_TOL = 2e-2  # mean |d| of [0, 1] pixels, card bf16 vs CPU fp32
+RENDER_COSINE = 0.99   # of the [-1, 1] images
+
+
+def sampler_launches(cfg):
+    """mha_blhd and int8_dense launches of the int8 sampler: a
+    calibration forward (the whole model and the cluster head), a batch's
+    language stack, and a decode step (the visual and cross layers
+    without the last cross layer's language side, and the head)."""
+    nl, nr, nx = cfg.l_layers, cfg.r_layers, cfg.x_layers
+    return {"sample calib": {"mha_blhd": nl + nr + 4 * nx,
+                             "int8_dense": 4 * nl + 1 + 4 * nr + 14 * nx
+                             + 3},
+            "sample lang": {"mha_blhd": nl, "int8_dense": 4 * nl},
+            "sample step": {"mha_blhd": nr + 4 * nx - 2,
+                            "int8_dense": 1 + 4 * nr + 14 * nx - 7 + 3}}
+
+
+def expected_sample_launches(cfg, int8: bool, batches: int, steps: int):
+    """Every kernel's launches in one sample_images run, {"calib": the
+    int8 sampler's 3 calibration forwards, "loop": per batch its language
+    stack and `steps` decode steps}; none for the bf16 sampler (the exact
+    model's einsum attention), none of any other kernel."""
+    per = sampler_launches(cfg)
+    names = ("mha_blhd", "int8_dense")
+    return {"calib": {n: 3 * per["sample calib"][n] * int8 for n in names},
+            "loop": {n: batches * (per["sample lang"][n]
+                                   + steps * per["sample step"][n]) * int8
+                     for n in names}}
+
+
+def sampler_attention_cases(cfg, B, T, vis=64):
+    """(batch, Lq, Lk, with_bias, dtype, fast, uses) of mha_blhd in the
+    int8 sampler at batch B, text T, `vis` grid cells (its calibration
+    batch is B too): `uses` maps "sample calib", "sample lang" and
+    "sample step" to the shape's launches in one of each."""
+    nl, nr, nx = cfg.l_layers, cfg.r_layers, cfg.x_layers
+    uses = {(T, T, True): {"sample calib": nl + nx, "sample lang": nl,
+                           "sample step": nx - 1},
+            (vis, vis, False): {"sample calib": nr + nx,
+                                "sample step": nr + nx},
+            (T, vis, False): {"sample calib": nx, "sample step": nx - 1},
+            (vis, T, True): {"sample calib": nx, "sample step": nx}}
+    for (lq, lk, bias), u in uses.items():
+        yield B, lq, lk, bias, "bfloat16", True, {
+            k: n for k, n in u.items() if n}
+
+
+def sampler_dense_cases(cfg, B, T, n_clusters, vis=64):
+    """(M, K, N, static, uses) of the int8 dense in the int8 sampler
+    (`vis` grid cells): calibration forwards run the dynamic mode, the
+    language stack and the decode steps the static one."""
+    Hd, I, Fv = cfg.hidden_size, cfg.intermediate_size, cfg.visual_feat_dim
+    nl, nr, nx = cfg.l_layers, cfg.r_layers, cfg.x_layers
+    layer = {(Hd, 3 * Hd): 1, (Hd, Hd): 1, (Hd, I): 1, (I, Hd): 1}
+    head = {(Hd, Hd): 1, (Hd, Fv): 1, (Fv, n_clusters): 1}
+    # one side of a cross layer: the kv of its hidden states (which the
+    # other side attends to), the q and out of its attention, its
+    # self-attention (qkv, out) and its FFN
+    cross = {(Hd, 2 * Hd): 1, (Hd, 3 * Hd): 1, (Hd, Hd): 3, (Hd, I): 1,
+             (I, Hd): 1}
+
+    def times(group, n):
+        return {k: n * v for k, v in group.items()}
+
+    groups = [  # (kind, M, {(K, N): launches})
+        ("sample calib", B * T, times(layer, nl)),
+        ("sample calib", B * vis, {(Fv, Hd): 1, **times(layer, nr)}),
+        ("sample calib", B * T, times(cross, nx)),
+        ("sample calib", B * vis, times(cross, nx)),
+        ("sample calib", B * vis, head),
+        ("sample lang", B * T, times(layer, nl)),
+        ("sample step", B * vis, {(Fv, Hd): 1, **times(layer, nr)}),
+        # the last cross layer: of the language side only its kv, which
+        # the visual side's attention reads; the visual side's kv unread
+        ("sample step", B * T, times(cross, nx - 1)),
+        ("sample step", B * T, {(Hd, 2 * Hd): 1}),
+        ("sample step", B * vis, times(cross, nx - 1)),
+        ("sample step", B * vis, {k: n for k, n in cross.items()
+                                  if k != (Hd, 2 * Hd)}),
+        ("sample step", B * vis, head)]
+    shapes = {}
+    for kind, M, group in groups:
+        for (K, N), n in group.items():
+            if n:
+                uses = shapes.setdefault((M, K, N, kind != "sample calib"),
+                                         {})
+                uses[kind] = uses.get(kind, 0) + n
+    for (M, K, N, static), uses in shapes.items():
+        yield M, K, N, static, uses
+
+
+def sampler_cases_cover_launches(name, rows, cfg) -> dict:
+    """{kind: launches the kernel phase covers} of the sampler's kinds;
+    fails unless they are sampler_launches'."""
+    got = {}
+    for kind, want in sampler_launches(cfg).items():
+        got[kind] = sum(r["uses"].get(kind, 0) for r in rows)
+        if got[kind] != want[name]:
+            fail(f"{name}: the kernel phase covers {got[kind]} launches of "
+                 f"a {kind}, the sampler makes {want[name]}")
+    return got
+
+
+def tie_aware_agreement(card, host) -> float:
+    """Share of cells whose card argmax is one of the host's tied maxima
+    (logits (..., C) on the CPU)."""
+    pick = card.float().argmax(-1, keepdim=True)
+    host = host.float()
+    return float((host.gather(-1, pick)[..., 0] == host.amax(-1))
+                 .float().mean())
+
+
+class StepRecorder:
+    """The samplers' on_step hook: per batch, each step's (vis_mask,
+    argmax of the logits) left on the device; and for the first batch's
+    first `check` rows the step's inputs and logits on the CPU."""
+
+    def __init__(self, check: int = 0):
+        self.check, self.batches, self.inputs = check, [], []
+
+    def __call__(self, i, inputs, logits):
+        if i == 0:
+            self.batches.append([])
+        self.batches[-1].append((inputs["vis_mask"].clone(),
+                                 logits.argmax(-1)))
+        if self.check and len(self.batches) == 1:
+            c = self.check
+            self.inputs.append(({k: v[:c].cpu() for k, v in inputs.items()},
+                                logits[:c].float().cpu()))
+
+
+def check_sample_semantics(torch, rec, res, table, mode, strategy, n_steps,
+                           B, n_cells, n_clusters) -> int:
+    """From the card's own steps: NAR masks the schedule's count of cells
+    each step (all at step 0) and commits exactly the masked cells; AR
+    commits one cell a step, each cell once (TLBR in order); the final
+    ids are those commits and the codes their centroids. Fails
+    otherwise. Returns the number of batches checked."""
+    ids = torch.from_numpy(res["ids"])
+    if not ((ids >= 0) & (ids < n_clusters)).all():
+        fail(f"{mode}: cluster ids outside [0, {n_clusters})")
+    if not torch.equal(res["codes"].cpu(),
+                       table[ids].to(res["codes"].dtype)):
+        fail(f"{mode}: the final codes are not their ids' centroids")
+    for b, steps in enumerate(rec.batches):
+        if len(steps) != n_steps:
+            fail(f"{mode}: batch {b} ran {len(steps)} steps, not {n_steps}")
+        sim = torch.zeros(B, n_cells, dtype=torch.long)
+        seen = torch.zeros(B, n_cells, dtype=torch.long)
+        for i, (vm, pred) in enumerate(steps):
+            vm, pred = vm.cpu(), pred.cpu()
+            if mode == "NAR":
+                upd = vm
+                want = ((n_steps - i) * n_cells) // n_steps
+                if not (vm.sum(-1) == want).all():
+                    fail(f"NAR step {i} masked {vm.sum(-1).tolist()} "
+                         f"cells, not {want}")
+            else:
+                upd = vm if i + 1 == n_steps else vm & ~steps[i + 1][0].cpu()
+                if not (upd.sum(-1) == 1).all():
+                    fail(f"AR step {i} committed {upd.sum(-1).tolist()} "
+                         "cells, not 1")
+                if strategy == "TLBR" and not upd[:, i % n_cells].all():
+                    fail(f"AR TLBR step {i} did not commit cell {i}")
+            sim = torch.where(upd, pred, sim)
+            seen += upd.long()
+        if mode == "AR" and not (seen == 1).all():
+            fail(f"AR batch {b}: a cell was committed {int(seen.max())} "
+                 f"or {int(seen.min())} times, not once")
+        rows = ids[b * B:(b + 1) * B]
+        if not torch.equal(sim[:len(rows)], rows):
+            fail(f"{mode} batch {b}: the final ids are not the steps' "
+                 "commits")
+    return len(rec.batches)
+
+
+def int8_step_units(sp, ids, mask, pos, n_heads):
+    """The int8 sampler's decode step, with the language stack it reads,
+    as units on (lang, visn) states: the language stack, the visual
+    embeddings, each visual layer, each cross layer (the last without its
+    language side) and the cluster head (visn -> logits). [(name, fn)],
+    fn(state) -> state; the first state is (None, the step's feats)."""
+    from xlxmert_tpu_torch.serving import lxmert_int8 as engine
+    from xlxmert_tpu_torch.serving import sampling_int8 as si
+
+    qp = sp.bert
+    lang_bias = engine._extend_mask(mask)
+    units = [("language stack", lambda s: (engine.lang_encode(
+        qp, ids, mask, n_heads)[0], s[1])),
+             ("visual embeddings", lambda s: (s[0], engine.visual_embeddings(
+                 qp.visn_fc, s[1], pos)))]
+    for i, layer in enumerate(qp.visn_layers):
+        units.append((f"visual layer {i}", lambda s, layer=layer: (
+            s[0], layer(s[1], None, n_heads))))
+    last = len(qp.x_layers) - 1
+    for j, p in enumerate(qp.x_layers):
+        units.append((f"cross layer {j}", lambda s, p=p, j=j: si.cross_layer(
+            p, s[0], s[1], lang_bias, None, n_heads, j < last)))
+    units.append(("cluster head", lambda s: (
+        s[0], si.obj_head_forward(sp.obj_head, s[1]))))
+    return units
+
+
+def int8_units_card_vs_cpu(torch, card_sp, host_sp, ids, mask, feats, cfg,
+                           sz):
+    """Each unit of an int8 decode step (int8_step_units) on the CPU from
+    the card's input to that unit, against the card's output: the
+    cosine of what the unit changed, and for the cluster head the tie-
+    aware argmax agreement. Returns [(name, cosine, agreement or None)]
+    and the card's logits."""
+    from xlxmert_tpu_torch.tasks import sampling
+
+    def units(sp, dev):
+        pos = sampling.grid_positions(sz["grid"], len(ids), dev,
+                                      torch.bfloat16)
+        return int8_step_units(sp, ids.to(dev), mask.to(dev), pos,
+                               cfg.num_attention_heads)
+
+    out = []
+    dev = next(card_sp.buffers()).device
+    state = (None, feats.to(dev))
+    with torch.inference_mode():
+        for (name, card), (_, host) in zip(units(card_sp, dev),
+                                           units(host_sp, "cpu")):
+            got = card(state)
+            ref = host(tuple(None if t is None else t.cpu()
+                             for t in state))
+            changed = [k for k in (0, 1) if got[k] is not state[k]]
+            a = torch.cat([got[k].float().cpu().ravel() for k in changed])
+            b = torch.cat([ref[k].float().ravel() for k in changed])
+            agree = (tie_aware_agreement(got[1].cpu(), ref[1])
+                     if name == "cluster head" else None)
+            out.append((name, cosine(a, b), agree))
+            state = got
+    return out, state[1].float().cpu()
+
+
+def sample_card_vs_cpu(torch, rec, res, inputs, ids, mask, int8, cfg, sz,
+                       log):
+    """The recorded steps (the first `check` sentences of the first
+    batch) through the same engine on the CPU (plain versions), teacher-
+    forced. bf16: each step from the card's inputs to it, gated on the
+    cluster logits' cosine and the tie-aware argmax agreement. int8: each
+    unit of each step (int8_step_units) from the card's input to that
+    unit, every unit's cosine and the cluster head's agreement gated; the
+    whole step from the card's inputs to the step gated on the logits'
+    cosine, its agreement reported (the int8 step is chaotic: one bf16
+    step moved anywhere re-rolls its quantization noise, so its argmax
+    agreement with another computation is that of two int8 noise
+    draws). Then the whole NAR run on the CPU for those sentences, whose
+    share of equal final ids is reported."""
+    import copy
+
+    from xlxmert_tpu_torch.serving import sampling_int8 as si
+    from xlxmert_tpu_torch.tasks import sampling
+
+    host = copy.deepcopy(res["engine"]).to("cpu")
+    centroids = torch.from_numpy(inputs["centroids"])
+    pos = sampling.grid_positions(sz["grid"], len(ids), "cpu",
+                                  torch.bfloat16 if int8 else torch.float32)
+    kind = "int8" if int8 else "bf16"
+    steps = []
+    with torch.inference_mode():
+        for i, (step_in, card) in enumerate(rec.inputs):
+            if int8:
+                got = si._predict_forward(host, ids, step_in["feats"], pos,
+                                          mask, cfg.num_attention_heads)
+            else:
+                got = host(ids, step_in["code"], pos, attention_mask=mask,
+                           vis_mask=step_in["vis_mask"].float(),
+                           centroids=centroids.to(host.dtype),
+                           heads=("obj",))["obj_logits"]
+            c, agree = cosine(card, got), tie_aware_agreement(card, got)
+            row = {"cosine": c, "argmax_agree": agree}
+            log(f"    step {i}: the whole step from the card's inputs: "
+                f"logits cosine {c:.6f}, argmax agreement (ties counted) "
+                f"{agree:.3f}" + (" (reported)" if int8 else ""))
+            if not c > SAMPLE_COSINE or (not int8 and agree < SAMPLE_AGREE):
+                fail(f"{kind} NAR step {i}: card vs CPU cosine {c} (> "
+                     f"{SAMPLE_COSINE}) or argmax agreement {agree} (>= "
+                     f"{SAMPLE_AGREE}) missed")
+            if int8:
+                units, chain = int8_units_card_vs_cpu(
+                    torch, res["engine"], host, ids, mask,
+                    step_in["feats"], cfg, sz)
+                row["units"] = [{"unit": n, "cosine": uc,
+                                 "argmax_agree": ua} for n, uc, ua in units]
+                row["chain_equals_the_run"] = bool(torch.equal(chain, card))
+                worst = min(units, key=lambda u: u[1])
+                head = units[-1]
+                log(f"      unit by unit from the card's input to each: "
+                    f"smallest cosine {worst[1]:.6f} ({worst[0]}); cluster "
+                    f"head cosine {head[1]:.6f}, argmax agreement (ties "
+                    f"counted) {head[2]:.3f}")
+                for name, uc, ua in units:
+                    if not uc > SAMPLE_COSINE or (ua is not None
+                                                  and ua < SAMPLE_AGREE):
+                        fail(f"int8 NAR step {i}, {name}: card vs CPU "
+                             f"cosine {uc} (> {SAMPLE_COSINE}) or argmax "
+                             f"agreement {ua} (>= {SAMPLE_AGREE}) missed")
+            steps.append(row)
+        if int8:
+            cpu = si.make_nar_sampler_int8(cfg, sz["nar_steps"], sz["grid"])(
+                host, centroids, ids, mask)
+        else:
+            cpu = sampling.make_nar_sampler(host, sz["nar_steps"],
+                                            sz["grid"])(centroids, ids, mask)
+    same = float((cpu[1] == torch.from_numpy(res["ids"][:len(ids)]))
+                 .float().mean())
+    log(f"    the whole NAR run on the CPU, {len(ids)} sentences: final ids "
+        f"equal to the card's on {same:.3f} of the cells (reported only)")
+    return {"steps": steps, "trajectory_ids_equal": same}
+
+
+def render_card_vs_cpu(torch, res, inputs, sz, n):
+    """The card's first n final code grids rendered on the CPU in fp32
+    against the card's bf16 render: mean |d| of the [0, 1] pixels and the
+    cosine of the [-1, 1] images, gated."""
+    from xlxmert_tpu_torch.models import gan
+
+    params, sn, _ = inputs["generator"]
+    host = gan.load_variables(gan.Generator(
+        emb_dim=inputs["centroids"].shape[1], base_dim=sz["base_dim"],
+        target_size=sz["target_size"], init_H=sz["grid"],
+        init_W=sz["grid"], codebook_dim=sz["codebook_dim"]), params, sn)
+    with torch.inference_mode():
+        raw = host.eval()(res["codes"][:n].float().cpu())
+    card = torch.from_numpy(res["images"][:n])
+    mean_d = float((card - torch.clamp((raw + 1) / 2, 0, 1)).abs().mean())
+    cos = cosine(card * 2 - 1, raw)
+    if not (mean_d <= RENDER_MEAN_TOL and cos > RENDER_COSINE):
+        fail(f"render: card bf16 vs CPU fp32 mean |d| {mean_d} (<= "
+             f"{RENDER_MEAN_TOL}) or cosine {cos} (> {RENDER_COSINE}) "
+             "missed")
+    return {"mean_abs_diff": mean_d, "cosine": cos, "images": n}
+
+
+def profile_sampler(torch, sample, n_steps, lang):
+    """One sampler batch and its language stack alone (`lang`), each
+    timed on the host clock (profiler off) and traced by torch.profiler:
+    device time by group (mha_blhd's kernel, the int8 dense kernel, the
+    rest: glue). A decode step is (batch - language stack) / n_steps; its
+    busy share is its device time over its wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def group(name):
+        return ("mha_blhd" if "attend_mma_kernel" in name
+                else "int8_dense" if "int8_dense_kernel" in name
+                else "glue")
+
+    def measure(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        groups = {"mha_blhd": 0.0, "int8_dense": 0.0, "glue": 0.0}
+        n = 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                groups[group(e.name)] += e.time_range.elapsed_us() / 1e3
+                n += 1
+        if not n:
+            fail("the sampler's trace holds no device time")
+        return wall, groups
+
+    wall, groups = measure(sample)
+    lang_wall, lang_groups = measure(lang)
+    step = {k: (groups[k] - lang_groups[k]) / n_steps for k in groups}
+    step_wall = (wall - lang_wall) / n_steps
+    return {"batch_wall_ms": wall, "batch_device_ms": groups,
+            "lang_wall_ms": lang_wall, "lang_device_ms": lang_groups,
+            "step_wall_ms": step_wall, "step_device_ms": step,
+            "step_busy_share": sum(step.values()) / step_wall}
+
+
+def write_sample_files(cfg, sz, seed, sentences, words, tmp):
+    """The CLI's inputs as files in `tmp`, made from `seed`: the random
+    X-LXMERT and generator as JAX-format msgpack checkpoints, the
+    centroids (randn x 0.1, bench.py's) as .npy, the vocabulary, the
+    sentences and the model config. Returns the CLI's arguments."""
+    import numpy as np
+
+    from xlxmert_tpu_torch.core.checkpoint import save_pytree
+    from xlxmert_tpu_torch.models import gan
+    from xlxmert_tpu_torch.tasks import sampling
+
+    f = {n: os.path.join(tmp, n) for n in (
+        "x.msgpack", "centroids.npy", "g.msgpack", "vocab.txt",
+        "sentences.txt", "model.yaml")}
+    save_pytree(sampling.random_params(cfg, seed), f["x.msgpack"])
+    np.save(f["centroids.npy"], np.random.RandomState(seed).randn(
+        sz["clusters"], cfg.visual_feat_dim).astype(np.float32) * 0.1)
+    save_pytree(gan.random_variables(
+        cfg.visual_feat_dim, sz["base_dim"], sz["target_size"], sz["grid"],
+        sz["codebook_dim"], seed), f["g.msgpack"])
+    with open(f["vocab.txt"], "w") as fh:
+        fh.write("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+                           + words) + "\n")
+    with open(f["sentences.txt"], "w") as fh:
+        fh.write("\n".join(sentences) + "\n")
+    cfg.save(f["model.yaml"])
+    return ["--load", f["x.msgpack"], "--centroids", f["centroids.npy"],
+            "--generator", f["g.msgpack"], "--vocab", f["vocab.txt"],
+            "--sentences", f["sentences.txt"],
+            "--model_config", f["model.yaml"],
+            "--batch_size", str(sz["batch"]),
+            "--max_text_length", str(sz["text"]),
+            "--grid_size", str(sz["grid"]),
+            "--sample_steps", str(sz["nar_steps"]),
+            "--target_size", str(sz["target_size"]),
+            "--g_base_dim", str(sz["base_dim"]),
+            "--codebook_dim", str(sz["codebook_dim"])]
+
+
+def run_sample_path(torch, args, kernels, log, cfg=None, device="cuda",
+                    sizes=None, card=""):
+    """Phase (j): cli/sample_images.sample_images() over JAX-format files
+    made from --seed (write_sample_files; the model at `cfg`, default
+    LxmertConfig()) in each of SAMPLE_RUNS, with the launches checked
+    exactly, the NAR/AR semantics checked from the card's own steps,
+    SAMPLE_CHECKED's steps held to the CPU teacher-forced, the render held
+    to an fp32 render on the CPU, and the int8 NAR and AR batches
+    profiled (on the card). `sizes` overrides SAMPLE_SIZES (the CPU test
+    runs a small one); `card` (nvidia-smi's name and power limit) goes
+    beside every number logged. Returns its numbers."""
+    import numpy as np
+
+    from xlxmert_tpu_torch.cli import sample_images as cli
+    from xlxmert_tpu_torch.core.config import LxmertConfig
+    from xlxmert_tpu_torch.models.gan import render
+    from xlxmert_tpu_torch.serving import sampling_int8 as si
+    from xlxmert_tpu_torch.serving.lxmert_int8 import lang_encode
+
+    sz = dict(SAMPLE_SIZES, **(sizes or {}))
+    cfg = (cfg or LxmertConfig()).replace(num_clusters=sz["clusters"])
+    B, T, n_cells = sz["batch"], sz["text"], sz["grid"] ** 2
+    rng = np.random.RandomState(args.seed)
+    words = [f"w{i}" for i in range(4000)]
+    sentences = [" ".join(rng.choice(words, rng.randint(1, T - 1)))
+                 for _ in range(sz["batches"] * B)]
+    out = {"runs": {}, "launches": {k.name: 0 for k in kernels}}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        common = write_sample_files(cfg, sz, args.seed, sentences, words,
+                                    tmp) + ["--device", device]
+        inputs = cli.load_inputs(cli.parse_args(common))
+        log(f"  files written and read back in {time.time() - t0:.1f}s "
+            f"({len(sentences)} sentences, {sz['clusters']} x "
+            f"{cfg.visual_feat_dim} centroids)")
+        tok, check = inputs["tokenizer"], sz["check"]
+        ids_c = torch.from_numpy(tok.encode_batch(sentences[:check], T)
+                                 .astype(np.int64))
+        mask_c = (ids_c > 0).float()
+        exact = None
+        for name, flags in SAMPLE_RUNS.items():
+            ns = cli.parse_args(common + flags + ["--output",
+                                                  os.path.join(tmp, name)])
+            rec = StepRecorder(check if name in SAMPLE_CHECKED else 0)
+            calib = {}
+
+            def ready():
+                # calibration's launches apart from the decode loops'
+                calib.update((k.name, k.launches) for k in kernels)
+                for k in kernels:
+                    k.launches = 0
+                if device == "cuda":
+                    torch.cuda.reset_peak_memory_stats()
+
+            for k in kernels:
+                k.launches = 0
+            t0 = time.time()
+            res = cli.sample_images(ns, inputs, on_ready=ready, on_step=rec)
+            wall = time.time() - t0
+            launches = {k.name: k.launches for k in kernels}
+            n_steps = sz["nar_steps"] if ns.sample_mode == "NAR" else n_cells
+            want = expected_sample_launches(cfg, ns.int8, sz["batches"],
+                                            n_steps)
+            for part, got in (("calib", calib), ("loop", launches)):
+                for k, n in got.items():
+                    out["launches"][k] += n
+                    if n != want[part].get(k, 0):
+                        fail(f"{name}: {k} launched {n} times in the "
+                             f"{part}, expected {want[part].get(k, 0)} "
+                             f"({sz['batches']} batches of {n_steps} "
+                             "steps)")
+            table = torch.from_numpy(inputs["centroids"])
+            check_sample_semantics(
+                torch, rec, res, table.to(torch.bfloat16) if ns.int8
+                else table, ns.sample_mode, ns.position_strategy, n_steps, B,
+                n_cells, sz["clusters"])
+            steady = slice(1, None) if sz["batches"] > 1 else slice(None)
+            n_b = len(res["sample_s"][steady])
+            samp = sum(res["sample_s"][steady])
+            rend = sum(res["render_s"][steady])
+            row = {"flags": flags, "calib_launches": calib,
+                   "launches": launches, "steps": n_steps,
+                   "batches": len(res["sample_s"]), "wall_s": wall,
+                   "sample_s": res["sample_s"], "render_s": res["render_s"],
+                   "sampling_samples_per_s": B * n_b / samp,
+                   "samples_per_s": B * n_b / (samp + rend),
+                   "render_ms_per_batch": rend * 1e3 / n_b,
+                   "step_wall_ms": samp * 1e3 / (n_b * n_steps),
+                   "peak_bytes": (torch.cuda.max_memory_allocated()
+                                  if device == "cuda" else 0)}
+            log(f"  {name}: {row['samples_per_s']:.1f} samples/s with the "
+                f"render ({row['sampling_samples_per_s']:.1f} sampling "
+                f"only, {row['step_wall_ms']:.2f} ms a step), render "
+                f"{row['render_ms_per_batch']:.2f} ms a batch of {B}; "
+                "launches in the loops " + (", ".join(
+                    f"{k} {v}" for k, v in launches.items() if v) or "none")
+                + f"; peak {row['peak_bytes'] / 2**30:.2f} GiB ({card})")
+            if name in SAMPLE_CHECKED:
+                log(f"  {name}: card vs CPU, teacher-forced, {check} "
+                    "sentences:")
+                row["card_vs_cpu"] = sample_card_vs_cpu(
+                    torch, rec, res, inputs, ids_c, mask_c, ns.int8, cfg,
+                    sz, log)
+            if name == "NAR int8":
+                row["render_card_vs_cpu"] = r = render_card_vs_cpu(
+                    torch, res, inputs, sz, check)
+                log(f"  render: card bf16 vs CPU fp32 mean |d| "
+                    f"{r['mean_abs_diff']:.2e}, cosine {r['cosine']:.6f}")
+                log(f"  bench Config #2 (NAR 4 int8 + exact 256-px render, "
+                    f"B={B}): {row['samples_per_s']:.1f} samples/s, render "
+                    f"{row['render_ms_per_batch']:.2f} ms a batch ({card})")
+                exact = res
+            if name == "NAR int8 fast_render" and exact is not None:
+                # the exact run's codes through the capped render
+                fast = render(res["generator"], exact["codes"][:B])
+                row["fast_vs_exact_mean_abs_diff"] = float(
+                    (fast.float().cpu() - torch.from_numpy(
+                        exact["images"][:B])).abs().mean())
+                log("  fast_render vs exact, the same codes: mean |d| "
+                    f"{row['fast_vs_exact_mean_abs_diff']:.2e} (reported)")
+                exact = None
+            if name in ("NAR int8", "AR int8") and device == "cuda":
+                sp = res["engine"]
+                ids = torch.from_numpy(tok.encode_batch(sentences[:B], T)
+                                       .astype(np.int64)).to(device)
+                mask = (ids > 0).float()
+                centroids = torch.from_numpy(inputs["centroids"]).to(device)
+                sampler = (si.make_nar_sampler_int8(cfg, n_steps, sz["grid"])
+                           if ns.sample_mode == "NAR" else
+                           si.make_ar_sampler_int8(cfg, sz["grid"]))
+
+                def lang():
+                    with torch.inference_mode():
+                        lang_encode(sp.bert, ids, mask,
+                                    cfg.num_attention_heads)
+
+                row["profile"] = p = profile_sampler(
+                    torch, lambda: sampler(sp, centroids, ids, mask),
+                    n_steps, lang)
+                log(f"  {name}, one decode step ((batch - language stack) "
+                    f"/ {n_steps}, profiled): host wall "
+                    f"{p['step_wall_ms']:.3f} ms, card busy "
+                    f"{p['step_busy_share']:.2f}; device "
+                    + ", ".join(f"{k} {v:.3f} ms" for k, v in
+                                p["step_device_ms"].items()) + f" ({card})")
+            out["runs"][name] = row
+            del res, rec
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     try:
@@ -2248,6 +2873,28 @@ def main(argv=None) -> int:
     log("  C1: fused_mha's gradients on the card against the CPU's; the "
         "forward-only kernels refuse a backward")
     grad_rows = check_fused_mha_grad(torch, attention, ffn, cfg, rng, log)
+    sz = SAMPLE_SIZES
+    log(f"  the int8 sampler's shapes (B={sz['batch']}, text {sz['text']}, "
+        f"{sz['clusters']} clusters):")
+    # after the checks above (as they ran before these cases existed),
+    # with a generator of their own
+    sample_rng = torch.Generator(device="cuda").manual_seed(args.seed + 1)
+    sample_rows = {
+        "mha_blhd": check_attention(
+            torch, F, attention, cfg, sample_rng, log,
+            cases=sampler_attention_cases(cfg, sz["batch"], sz["text"])),
+        "int8_dense": check_int8(
+            torch, int8_matmul, quant, cfg, BATCH, 3129, sample_rng, log,
+            cases=sampler_dense_cases(cfg, sz["batch"], sz["text"],
+                                      sz["clusters"]))}
+    sample_times = {}
+    for name, kernel_rows in sample_rows.items():
+        sampler_cases_cover_launches(name, kernel_rows, cfg)
+        sample_times[name] = t = per_forward(
+            kernel_rows, mix, tuple(sampler_launches(cfg)))
+        log(f"  {name} in the int8 sampler (ms): " + "; ".join(
+            f"{kind} kernel {v['ms']:.4f} plain {v['plain_ms']:.4f} bound "
+            f"{v['bound_ms']:.4f}" for kind, v in t.items()))
     times = {}
     for name, kernel_rows in rows.items():
         launches_per_kind(name, kernel_rows)
@@ -2306,8 +2953,18 @@ def main(argv=None) -> int:
         f"{PT_BATCH}, text {PT_TEXT}, {PT_STEPS} round-robin steps a route, "
         "bf16 mixed precision, dropout 0.1, random weights")
     pt = run_pretrain_path(torch, args, kernels, log, setup=setup)
+    del setup
+    torch.cuda.empty_cache()
+    log(f"(j) text-to-image: full width, {sz['clusters']} random centroids, "
+        f"B={sz['batch']}, text {sz['text']}, {sz['batches']} batches a run "
+        f"through cli/sample_images ({card})")
+    t0 = time.time()
+    sample = run_sample_path(torch, args, kernels, log, card=card)
+    sample["wall_s"] = time.time() - t0
+    log(f"  phase (j) took {sample['wall_s']:.1f}s")
     paths = {"int8": path, **bf16_paths, "int8+fused_block": fused_path,
-             "finetune": ft, "layout": layout, "pretrain": pt}
+             "finetune": ft, "layout": layout, "pretrain": pt,
+             "sample": sample}
 
     # (d) the kernels line and the device line: times per serving forward
     # drawn from VQA_LENGTH_MIX (mha_blhd_train: per VQA training step);
@@ -2335,7 +2992,8 @@ def main(argv=None) -> int:
             "replaces": replaces,
             "launches": sum(p["launches"].get(name, 0)
                             for p in paths.values()),
-            "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
+            "max_abs_err": max(r["max_abs_err"] for r in rows[name]
+                               + sample_rows.get(name, [])),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             # no single PyTorch call quantizes, multiplies in int8 and
@@ -2351,6 +3009,8 @@ def main(argv=None) -> int:
                    "build_s": build_s, "kernel_rows": rows,
                    "fused_mha_grad": grad_rows,
                    "per_forward": times, "paths": paths,
+                   "sample_kernel_rows": sample_rows,
+                   "per_sample_kind": sample_times,
                    "kernels": summary,
                    "note": "times in 'kernels' are per serving forward at "
                            "B=256, weighted by VQA_LENGTH_MIX ('mix' in "

@@ -781,3 +781,102 @@ def test_pretrain_step_matches_the_cpu(cuda, bf16, rel, cos_bar):
         norm = np.sqrt(sum(float((gc[n] ** 2).sum()) for n in gc)
                        * sum(float((gh[n] ** 2).sum()) for n in gh))
         assert dot / norm > cos_bar, (task, dot / norm)
+
+
+# every (M, K, N) the int8 sampler gives the int8 dense at bench.py
+# Config #2's widths (B=64, text 20, 10,000 clusters), the cluster head's
+# N = 10,000 (a multiple of 8, of no tile width) included
+INT8_SAMPLER_SHAPES = sorted({(M, K, N) for M, K, N, _, _ in
+                              chip_smoke.sampler_dense_cases(
+                                  LxmertConfig(), 64, 20, 10000)})
+
+
+@pytest.mark.parametrize("M,K,N", INT8_SAMPLER_SHAPES)
+@pytest.mark.parametrize("static", [False, True])
+def test_int8_dense_kernel_matches_plain_at_the_sampler_shapes(cuda, M, K, N,
+                                                               static):
+    _int8_check(cuda, M, K, N, static, M + K + N)
+
+
+@pytest.mark.parametrize("Lq,Lk", [(20, 64), (64, 20), (20, 20), (64, 64)])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_mha_blhd_kernel_at_the_sampler_batch(cuda, Lq, Lk, with_bias):
+    """The int8 sampler's attention: B=64, bf16, the fast softmax."""
+    rng = np.random.RandomState(Lq + 3 * Lk)
+    B, H = 64, 12
+    q, k, v = _qkv(rng, B, Lq, Lk, H * 64, torch.bfloat16, cuda)
+    bias = None
+    if with_bias:
+        m = (rng.rand(B, Lk) > 0.3).astype(np.float32)
+        m[:, 0] = 1
+        bias = ((1.0 - torch.from_numpy(m)) * -1e9)[:, None, None, :].to(
+            cuda, torch.bfloat16)
+    before = attention.KERNEL.launches
+    out = attention.mha_blhd(q, k, v, bias, H, fast=True)
+    torch.cuda.synchronize()
+    assert attention.KERNEL.launches == before + 1
+    ref = attention.mha_blhd_reference(q, k, v, bias, H, fast=True)
+    assert (out.float() - ref.float()).abs().max() <= 2e-2
+
+
+@pytest.mark.parametrize("int8", [True, False])
+def test_nar_decode_steps_match_the_cpu(cuda, int8):
+    """The first two NAR steps of the int8 (kernels) and the bf16 sampler
+    at hidden 768 on the card, against the same engine on the CPU fed
+    the card's step inputs: chip_smoke phase (j)'s bars, the cluster
+    logits' cosine > 0.99 and >= 90 % of cells with the card's argmax
+    among the CPU's tied maxima."""
+    import copy
+
+    from xlxmert_tpu_torch.serving import lxmert_int8 as engine
+    from xlxmert_tpu_torch.serving import sampling_int8 as si
+    from xlxmert_tpu_torch.tasks import sampling
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LxmertConfig(l_layers=2, x_layers=2, r_layers=1,
+                       num_clusters=1000)
+    params = sampling.random_params(cfg, seed=1)
+    rng = np.random.RandomState(2)
+    cent = rng.randn(1000, 2048).astype(np.float32) * 0.1
+    ids = torch.from_numpy(rng.randint(5, 4000, (4, 20))).long()
+    ids[1, 12:] = 0
+    mask = (ids > 0).float()
+    steps = []
+
+    def hook(i, inputs, logits):
+        if i < 2:
+            steps.append(({k: v.cpu() for k, v in inputs.items()},
+                          logits.float().cpu()))
+
+    table = torch.from_numpy(cent)
+    if int8:
+        eng = si.prepare_sampler_params(params, cfg, cent, cuda)
+        si.calibrate_sampler(eng, table.to(cuda), ids.to(cuda),
+                             mask.to(cuda), cfg)
+        engine.apply_calibration(eng)
+        before = int8_matmul.KERNEL.launches
+        si.make_nar_sampler_int8(cfg, 4, on_step=hook)(
+            eng, table.to(cuda), ids.to(cuda), mask.to(cuda))
+        per = chip_smoke.sampler_launches(cfg)
+        assert int8_matmul.KERNEL.launches - before == (
+            per["sample lang"]["int8_dense"]
+            + 4 * per["sample step"]["int8_dense"])
+    else:
+        eng = sampling.sampler_model(params, cfg, torch.bfloat16, cuda)
+        sampling.make_nar_sampler(eng, 4, on_step=hook)(
+            table.to(cuda), ids.to(cuda), mask.to(cuda))
+    host = copy.deepcopy(eng).to("cpu")
+    pos = sampling.grid_positions(8, 4, "cpu", torch.bfloat16 if int8
+                                  else torch.float32)
+    with torch.inference_mode():
+        for step_in, card in steps:
+            if int8:
+                got = si._predict_forward(host, ids, step_in["feats"], pos,
+                                          mask, 12)
+            else:
+                got = host(ids, step_in["code"], pos, attention_mask=mask,
+                           vis_mask=step_in["vis_mask"].float(),
+                           centroids=table.to(torch.bfloat16),
+                           heads=("obj",))["obj_logits"]
+            assert chip_smoke.cosine(card, got) > 0.99
+            assert chip_smoke.tie_aware_agreement(card, got) >= 0.9

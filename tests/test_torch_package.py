@@ -108,6 +108,27 @@ def test_entry_points_need_the_card_unless_asked_for_the_cpu(no_cuda,
         == "cpu"
 
 
+def test_sampling_entry_points_need_the_card_unless_asked_for_the_cpu(
+        no_cuda):
+    from xlxmert_tpu_torch.core.config import LxmertConfig
+    from xlxmert_tpu_torch.serving import sampling_int8 as si
+    from xlxmert_tpu_torch.tasks import sampling
+
+    cfg = LxmertConfig(vocab_size=20, hidden_size=32, num_attention_heads=4,
+                       intermediate_size=64, l_layers=1, x_layers=1,
+                       r_layers=1, visual_feat_dim=16, num_clusters=5)
+    params = sampling.random_params(cfg, seed=0)
+    cent = np.zeros((5, 16), np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        si.prepare_sampler_params(params, cfg, cent)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sampling.sampler_model(params, cfg)
+    assert si.prepare_sampler_params(params, cfg, cent, "cpu").mask_feat \
+        .device.type == "cpu"
+    assert next(sampling.sampler_model(params, cfg, device="cpu")
+                .parameters()).device.type == "cpu"
+
+
 def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
     from xlxmert_tpu_torch.ops import attention, fused_block, int8_matmul
     from xlxmert_tpu_torch.ops.quant import (

@@ -19,6 +19,8 @@ frozen centroid table out of a reference checkpoint.
 `flax_to_state_dict` goes the other way for the port's own modules
 (models/), so a flax tree loads into them and
 `convert_torch_state_dict(model.state_dict())` gives the tree back.
+`split_variables` sorts a converted generator checkpoint into flax's
+variable collections (params, batch-norm statistics, spectral-norm u/v).
 """
 from __future__ import annotations
 
@@ -118,7 +120,8 @@ def flax_to_state_dict(tree: Mapping[str, Any], prefix: str = ""
     """Flax-layout nested param dict (numpy leaves) -> torch state_dict
     for the port's modules, which keep HF LXMERT's attribute names: the
     inverse of `convert_torch_state_dict` for Linear, LayerNorm and
-    embedding leaves (`kernel` (in, out) -> `weight` (out, in); `scale`
+    embedding leaves (`kernel` (in, out) -> `weight` (out, in); a conv
+    `kernel` (kh, kw, in, out) -> `weight` (out, in, kh, kw); `scale`
     and `embedding` -> `weight`; `layer_3` -> `layer.3`). Values are
     fp32 CPU tensors."""
     import torch
@@ -131,10 +134,15 @@ def flax_to_state_dict(tree: Mapping[str, Any], prefix: str = ""
             continue
         arr = np.asarray(node)
         if name == "kernel":
-            if arr.ndim != 2:
-                raise ValueError(f"{prefix}kernel: only 2-D kernels map to "
-                                 f"Linear weights, got shape {arr.shape}")
-            name, arr = "weight", arr.T
+            if arr.ndim == 2:
+                arr = arr.T
+            elif arr.ndim == 4:  # (kh, kw, in, out) -> (out, in, kh, kw)
+                arr = arr.transpose(3, 2, 0, 1)
+            else:
+                raise ValueError(f"{prefix}kernel: only 2-D (Linear) and "
+                                 f"4-D (Conv2d) kernels map to weights, got "
+                                 f"shape {arr.shape}")
+            name = "weight"
         elif name in ("scale", "embedding"):
             name = "weight"
         out[prefix + name] = torch.from_numpy(
@@ -152,6 +160,29 @@ def load_torch_checkpoint(path: str) -> Dict[str, Any]:
             if k != "state_dict"):
         sd = sd["state_dict"]
     return convert_torch_state_dict(sd)
+
+
+def split_variables(tree: Mapping[str, Any]) -> Dict[str, Dict]:
+    """Split a converted tree into flax variable collections:
+    {'params': ..., 'batch_stats': ... (BN mean/var), 'sn': ...
+    (spectral-norm u/v)}. Empty collections are omitted."""
+    def walk(node, out):
+        for k, v in node.items():
+            if isinstance(v, Mapping):
+                sub: Dict[str, Dict] = {}
+                walk(v, sub)
+                for col, subtree in sub.items():
+                    out.setdefault(col, {})[k] = subtree
+            elif k in ("mean", "var"):
+                out.setdefault("batch_stats", {})[k] = v
+            elif k in ("weight_u", "weight_v"):
+                out.setdefault("sn", {})["u" if k == "weight_u" else "v"] = v
+            else:
+                out.setdefault("params", {})[k] = v
+
+    out: Dict[str, Dict] = {}
+    walk(tree, out)
+    return out
 
 
 def load_bert_state_dict(state_dict_or_path, l_layers: int = 9) -> Dict[str, Any]:

@@ -26,8 +26,9 @@ replaces the reference's id()-keyed two-pass trace.
 
 The whole-block fused engine (serving/lxmert_fused.py) runs on the
 calibrated tree this module builds. `nlvr2_forward` serves the NLVR2
-head (fine-tuning's `--serve_int8` eval). Not yet ported: the int8
-attention einsums (with sampling).
+head (fine-tuning's `--serve_int8` eval); serving/sampling_int8.py runs
+the text-to-image samplers on it. Not yet ported: the int8 attention
+einsums, which no entry point of the JAX package uses.
 """
 from __future__ import annotations
 
@@ -483,20 +484,18 @@ def calibration_sites(*trees: nn.Module) -> List[Tuple[str, AmaxObserver]]:
 
 
 @torch.inference_mode()
-def calibrate(qp: LxmertInt8, head_qp: AnswerHead, batches,
-              cfg: LxmertConfig, forward=vqa_forward) -> Dict[str, float]:
-    """Record per-site activation maxima over batches of (ids, feats,
-    pos, mask) through `forward` (vqa_forward or nlvr2_forward) on the
-    dynamic int8 path: store each site's amax on it and return {name:
-    amax} (names of calibration_sites). Run it before
-    apply_calibration."""
-    sites = calibration_sites(qp, head_qp)
+def calibrate_forward(forward, trees, batches) -> Dict[str, float]:
+    """Record per-site activation maxima for any forward:
+    `forward(*trees, *batch)` runs once per batch on the dynamic int8
+    path while every site of `trees` (calibration_sites) observes its
+    input. Stores each site's amax on it and returns {name: amax} for
+    the sites that saw an input. Run it before apply_calibration."""
+    sites = calibration_sites(*trees)
     for _, m in sites:
         m.start_observing()
     try:
-        for ids, feats, pos, mask in batches:
-            forward(qp, head_qp, ids, feats, pos, attention_mask=mask,
-                    n_heads=cfg.num_attention_heads)
+        for batch in batches:
+            forward(*trees, *batch)
     finally:
         running = [m.stop_observing() for _, m in sites]
     seen = [(name, m, r) for (name, m), r in zip(sites, running)
@@ -506,6 +505,18 @@ def calibrate(qp: LxmertInt8, head_qp: AnswerHead, batches,
     for (_, m, _), v in zip(seen, values):
         m.amax = v
     return {name: m.amax for name, m, _ in seen}
+
+
+def calibrate(qp: LxmertInt8, head_qp: AnswerHead, batches,
+              cfg: LxmertConfig, forward=vqa_forward) -> Dict[str, float]:
+    """calibrate_forward over batches of (ids, feats, pos, mask) through
+    `forward` (vqa_forward or nlvr2_forward) on (qp, head_qp)."""
+
+    def run(qp_, head_qp_, ids, feats, pos, mask):
+        forward(qp_, head_qp_, ids, feats, pos, attention_mask=mask,
+                n_heads=cfg.num_attention_heads)
+
+    return calibrate_forward(run, (qp, head_qp), batches)
 
 
 def apply_calibration(*trees: nn.Module) -> None:
