@@ -36,8 +36,9 @@ Phases, each of which fails the script on error:
       calibration batch, with and without a bias, beside SDPA and
       mha_blhd (B1, the same function) at the same shapes. fused_mha's
       gradients on the card (kernel forward, einsum backward) are held
-      to the CPU's, and mha_blhd, mha_hbatch and fused_ffn must refuse a
-      backward;
+      to the CPU's (the bf16 bias's gradient in the fp32 case to one
+      bf16 step of its largest value), and mha_blhd, mha_hbatch and
+      fused_ffn must refuse a backward;
   (c) the serving path at full width (LxmertConfig(): 9/5/5 layers, 768
       hidden, 2048-d grid features, 3,129 answers) with random weights
       from --seed: a 512-image bf16 catalog in device memory, 2,048
@@ -119,6 +120,21 @@ Phases, each of which fails the script on error:
       share and wall time (torch.profiler). Phase (b) also holds
       mha_blhd and the int8 dense (N = 10,000 included) to their plain
       versions at every shape of the int8 sampler;
+  (k) GAN training at bench.py measure_gan's widths (G base 32, D base
+      64, codebook 256, an 8x8 grid of 2,048-d codes, 256 px, 10,000
+      centroids randn x 0.2, B=32, bf16, no perceptual encoder) through
+      cli/train_generator.train() for GAN_SIZES["pairs"] (D, G) pairs:
+      every loss finite, no launch of a port kernel (cuDNN convolutions
+      and cuBLAS products only), G_0.msgpack rendered through
+      models/gan.render; chained_gd_step(4) timed as measure_gan times it
+      ((D, G) pairs/s, images/s), a D-step's and a G-step's ms, the peak
+      memory, and one pair profiled (torch.profiler: busy share, device
+      time in convolutions, the ACGAN product and glue) with the
+      convolutions' rate (their FLOPs counted from their shapes by
+      torch.utils.flop_counter over that time); one fp32 D-step
+      and G-step at B=2 on the card against the CPU from the same state
+      and batch (GAN_STEP_BARS on the losses and the gradients' cosine,
+      GAN_SN_TOL on the u, v written back);
   (d) one JSON line listing the kernels (times per serving forward of
       the length mix; mha_blhd_train's per training step, mha_hbatch's
       per layout forward), then the device line last.
@@ -176,6 +192,8 @@ PER_FORWARD = {
     # (i): per pre-training step of each route
     "pretrain pallas_blhd": {"mha_blhd_train": 34},
     "pretrain xla": {},
+    # (k): GAN training (cuDNN convolutions, cuBLAS): no port kernel
+    "gan": {},
 }
 # serve(bf16=True, attention=..., fused_ffn=...) of each bf16 path, and
 # the attention route its CPU copy takes (None: no card-vs-CPU check)
@@ -501,14 +519,21 @@ def check_attention(torch, F, attention, cfg, rng, log, name="mha_blhd",
     return rows
 
 
+def bf16_step(x: float) -> float:
+    """The spacing of bf16 values at |x|: 2^(floor(log2 |x|) - 7)."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 0.0
+
+
 def check_fused_mha_grad(torch, attention, ffn, cfg, rng, log,
                          device="cuda"):
     """C1 on the card: fused_mha's gradients (q, k, v and a bias that
     requires grad; the kernel forward, the einsum recomputed backward)
     against the einsum's gradients on the CPU at the model's widths, B=
     CALIB_BATCH, both cross-attention shapes, fp32 (1e-4) and bf16 (2e-2,
-    the fp32 and the bf16 softmax); and mha_blhd, mha_hbatch and
-    fused_ffn under grad: their backward raises."""
+    the fp32 and the bf16 softmax); the bias, which the kernel takes in
+    bf16 only, so that its gradient is bf16, in the fp32 case to one bf16
+    step of its largest value; and mha_blhd, mha_hbatch and fused_ffn
+    under grad: their backward raises."""
     H, HD = cfg.num_attention_heads, cfg.hidden_size
     D, B = HD // H, CALIB_BATCH
     rows = []
@@ -538,19 +563,35 @@ def check_fused_mha_grad(torch, attention, ffn, cfg, rng, log,
             errs = {}
             for name, a, r in zip(("out", "q", "k", "v", "bias"),
                                   got[device], got["cpu"]):
+                errs[name] = (a - r).abs().max().item()
+                if name == "bias" and dt == "float32":
+                    # the kernel takes a bf16 bias, so its gradient is
+                    # bf16: near a rounding tie the card and the CPU
+                    # round one fp32 sum a bf16 step apart, and a 1e-4
+                    # bar lies below that step. The bar: one bf16 step
+                    # of the CPU gradient's largest |value|, absolute
+                    bias_bar = bf16_step(r.abs().max().item())
+                    if not errs[name] <= bias_bar:
+                        fail(f"fused_mha backward {lq}x{lk} {dt} fast="
+                             f"{fast}: bias differs from the CPU's by "
+                             f"{errs[name]} (bar {bias_bar}: one bf16 step "
+                             "of its largest value)")
+                    continue
                 # tol absolute and relative, as torch.testing.assert_close
                 excess = ((a - r).abs() - tol * r.abs()).max().item()
-                errs[name] = (a - r).abs().max().item()
                 if not (excess <= tol):
                     fail(f"fused_mha backward {lq}x{lk} {dt} fast={fast}: "
                          f"{name} differs from the CPU's by "
                          f"{errs[name]} (tol {tol} + {tol} relative)")
             rows.append({"B": B, "Lq": lq, "Lk": lk, "dtype": dt,
-                         "fast": fast, "tol": tol, "max_abs_err": errs})
+                         "fast": fast, "tol": tol, "max_abs_err": errs,
+                         **({"bias_bar": bias_bar} if dt == "float32"
+                            else {})})
             log(f"  fused_mha backward B={B} {lq:2d}x{lk:2d} {dt:8} "
                 f"fast={fast!s:5} max |card - CPU| " + "  ".join(
                     f"{n} {e:.2e}" for n, e in errs.items())
-                + f" (tol {tol:g} + {tol:g} relative)")
+                + f" (tol {tol:g} + {tol:g} relative"
+                + (f"; bias {bias_bar:g}" if dt == "float32" else "") + ")")
     q, k, v = (torch.randn(B, FT_TEXT, HD, generator=rng, device=rng.device)
                .to(device, torch.bfloat16).requires_grad_() for _ in range(3))
     x = torch.randn(B * FT_TEXT, HD, generator=rng, device=rng.device).to(
@@ -2812,6 +2853,351 @@ def run_sample_path(torch, args, kernels, log, cfg=None, device="cuda",
     return out
 
 
+# ---------------------------------------------------------------------------
+# (k) GAN training
+# ---------------------------------------------------------------------------
+
+# bench.py measure_gan's widths: G base 32, D base 64, codebook 256, an
+# 8x8 grid of 2,048-d codes, 256 px, 10,000 centroids, B=32, bf16; the
+# CLI's in-memory loop runs `pairs` (D, G) pairs, chained_gd_step
+# `chain`; the card-vs-CPU steps run in fp32 at batch `check`
+GAN_SIZES = dict(batch=32, target=256, grid=8, emb=2048, classes=10000,
+                 g_base=32, d_base=64, codebook=256, pairs=3, chain=4,
+                 check=2)
+# fp32 card vs CPU, one D-step and one G-step from one state and batch:
+# (largest relative difference of a loss component, smallest cosine of
+# the gradient (Adam's first moment: b1 = 0), the noise scales left out)
+GAN_STEP_BARS = (1e-4, 0.9999)
+GAN_SN_TOL = 1e-5      # u, v written back: of the CPU's largest |value|
+
+
+def gan_inputs(sz, seed):
+    """measure_gan's batch: centroids randn x 0.2, random cluster ids,
+    their codes, images uniform in [-1, 1] (numpy, from `seed`)."""
+    import numpy as np
+
+    r = np.random.RandomState(seed)
+    centroids = (r.randn(sz["classes"], sz["emb"]) * 0.2).astype(np.float32)
+    ids = r.randint(0, sz["classes"], (sz["batch"], sz["grid"] ** 2)
+                    ).astype(np.int32)
+    codes = centroids[ids].reshape(sz["batch"], sz["grid"], sz["grid"],
+                                   sz["emb"])
+    images = (r.rand(sz["batch"], sz["target"], sz["target"], 3)
+              * 2.0 - 1.0).astype(np.float32)
+    return {"image": images, "code": codes, "cluster_id": ids}, centroids
+
+
+def gan_config(sz, seed, out_dir, fp32=False):
+    """The GanConfig cli/train_generator builds from its flags at
+    `sz`'s widths (its data flags unused: the loop runs in memory)."""
+    from xlxmert_tpu_torch.cli import train_generator as cli
+
+    ns = cli.parse_args([
+        "--images_dir", out_dir, "--centroids", "-", "--cluster_pkl", "-",
+        "--output", out_dir, "--epochs", "1",
+        "--batch_size", str(sz["batch"]), "--g_base_dim", str(sz["g_base"]),
+        "--d_base_dim", str(sz["d_base"]),
+        "--codebook_dim", str(sz["codebook"]), "--emb_dim", str(sz["emb"]),
+        "--n_grid", str(sz["grid"]), "--resize_target_size",
+        str(sz["target"]), "--seed", str(seed)] + (["--fp32"] if fp32
+                                                   else []))
+    return cli.gan_config(ns, sz["classes"])
+
+
+def max_rel_diff(got, ref) -> float:
+    """The largest |got - ref| / max |ref| over the leaves of two nested
+    dicts of numpy arrays."""
+    import numpy as np
+
+    if isinstance(ref, dict):
+        return max((max_rel_diff(got[k], v) for k, v in ref.items()),
+                   default=0.0)
+    return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
+def gan_steps_card_vs_cpu(torch, cfg, batch, centroids, seed, device, log):
+    """One D-step and one G-step in fp32 (TF32 off) on `device` and on
+    the CPU from the same fresh state and batch: each loss component's
+    relative difference, the gradient's cosine (Adam's mu; the noise
+    scales, whose gradients come from each device's own draw, left out)
+    and the u, v each step writes back, gated (GAN_STEP_BARS,
+    GAN_SN_TOL)."""
+    from xlxmert_tpu_torch.models.gan import variables_of
+    from xlxmert_tpu_torch.tasks.train_generator import GanEngine
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        runs = {}
+        for where in (device, "cpu"):
+            eng = GanEngine(cfg, device=where)
+            state = eng.create_state(seed, centroids)
+            b = eng.place(batch)
+            table = torch.from_numpy(centroids).to(where)
+            t0 = time.time()
+            state, dm = eng.d_step(state, b, table)
+            sn_d = variables_of(state.D)["sn"]
+            state, gm = eng.g_step(state, b, table)
+            runs[where] = {
+                "metrics": {k: float(v) for k, v in {**dm, **gm}.items()},
+                "mu": {side: {n: t.detach().cpu().double()
+                              for n, t in opt.mu.items()
+                              if ".noise" not in n}
+                       for side, opt in (("d", state.opt_d),
+                                         ("g", state.opt_g))},
+                "sn": {"d": sn_d, "g": variables_of(state.G)["sn"]},
+                "s": time.time() - t0}
+            del eng, state
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    card, host = runs[device], runs["cpu"]
+    loss_bar, cos_bar = GAN_STEP_BARS
+    out = {"loss_rel_diff": {}, "grad_cosine": {}, "sn_rel_diff": {},
+           "cpu_s": host["s"]}
+    for k, r in host["metrics"].items():
+        d = abs(card["metrics"][k] - r) / max(abs(r), 1e-12)
+        out["loss_rel_diff"][k] = d
+        if not (math.isfinite(card["metrics"][k]) and d <= loss_bar):
+            fail(f"GAN step card vs CPU: {k} {card['metrics'][k]} against "
+                 f"{r} (relative difference {d} > {loss_bar})")
+    for side in ("d", "g"):
+        names = sorted(host["mu"][side])
+        cos = cosine(torch.cat([card["mu"][side][n].ravel() for n in names]),
+                     torch.cat([host["mu"][side][n].ravel() for n in names]))
+        out["grad_cosine"][side] = cos
+        if not cos > cos_bar:
+            fail(f"GAN {side.upper()}-step card vs CPU: gradient cosine "
+                 f"{cos} (bar {cos_bar})")
+        worst = max_rel_diff(card["sn"][side], host["sn"][side])
+        out["sn_rel_diff"][side] = worst
+        if not worst <= GAN_SN_TOL:
+            fail(f"GAN {side.upper()}-step card vs CPU: the u, v written "
+                 f"back differ by {worst} relative (bar {GAN_SN_TOL})")
+    log("  card vs CPU, fp32, one D-step and one G-step at B="
+        f"{len(batch['image'])} (CPU {host['s']:.1f}s): losses within "
+        f"{max(out['loss_rel_diff'].values()):.2e} relative, gradient "
+        "cosine " + ", ".join(f"{k.upper()} {v:.7f}" for k, v in
+                               out["grad_cosine"].items())
+        + ", u/v within " + ", ".join(
+            f"{k.upper()} {v:.1e}" for k, v in out["sn_rel_diff"].items())
+        + " relative")
+    return out
+
+
+def profile_gan_pair(torch, eng, state, batch, table):
+    """One (D, G) pair timed on the host clock (profiler off), then traced
+    by torch.profiler: its device time by group (the convolutions: cuDNN
+    under aten's convolution ops; the ACGAN product: under the
+    "acgan_product" range, both directions; the rest: glue) and the
+    card's busy share (device time over wall time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def pair():
+        eng.d_step(state, batch, table)
+        eng.g_step(state, batch, table)
+
+    pair()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pair()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        pair()
+        torch.cuda.synchronize()
+    total, groups = 0.0, {"convolutions": 0.0, "acgan_product": 0.0}
+    glue_ops = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            total += e.time_range.elapsed_us() / 1e3
+            continue
+        own = getattr(e, "self_device_time_total", 0) / 1e3
+        if not own:
+            continue
+        names, p = [e.name], e.cpu_parent
+        while p is not None:
+            names.append(p.name)
+            p = p.cpu_parent
+        if any("acgan_product" in n for n in names):
+            groups["acgan_product"] += own
+        elif any("conv" in n for n in names):
+            groups["convolutions"] += own
+        else:
+            glue_ops[e.name] = glue_ops.get(e.name, 0.0) + own
+    if not total:
+        fail("the GAN pair's trace holds no device time")
+    groups["glue"] = total - groups["convolutions"] - groups["acgan_product"]
+    top = sorted(glue_ops.items(), key=lambda kv: -kv[1])[:8]
+    return {"wall_ms": wall, "device_ms": total, "busy_share": total / wall,
+            "device_ms_by_group": groups, "glue_top_ops_ms": dict(top)}
+
+
+def gan_pair_conv_flops(torch, eng, state, batch, table):
+    """The floating-point operations of one (D, G) pair's convolutions,
+    forward and backward, counted from their shapes by
+    torch.utils.flop_counter (aten.convolution and
+    aten.convolution_backward)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as fc:
+        eng.d_step(state, batch, table)
+        eng.g_step(state, batch, table)
+    return sum(v for k, v in fc.get_flop_counts()["Global"].items()
+               if str(k) in ("aten.convolution", "aten.convolution_backward"))
+
+
+def run_gan_path(torch, args, kernels, log, device="cuda", sizes=None,
+                 card=""):
+    """Phase (k): GAN training at measure_gan's widths through
+    cli/train_generator's in-memory loop (`train`) for `pairs` (D, G)
+    pairs, every loss finite, G_0.msgpack written and rendered through
+    models/gan.render; chained_gd_step(`chain`) timed as measure_gan
+    times it ((D, G) pairs/s, images/s); a D-step's and a G-step's time,
+    the convolutions' FLOPs in a pair (gan_pair_conv_flops), the peak
+    memory and (on the card) a profiled pair's busy share, device time
+    by group and the convolutions' rate; one fp32 D-step and G-step held to the CPU's
+    (gan_steps_card_vs_cpu). No kernel of the port lies on this path:
+    every launch count must stay 0. `sizes` overrides GAN_SIZES (the CPU
+    test runs a small one). Returns its numbers."""
+    import numpy as np
+
+    from xlxmert_tpu_torch.cli import sample_images
+    from xlxmert_tpu_torch.cli import train_generator as cli
+    from xlxmert_tpu_torch.core.checkpoint import load_pytree
+    from xlxmert_tpu_torch.core.metrics import RunLogger
+    from xlxmert_tpu_torch.models.gan import Generator, load_variables, render
+    from xlxmert_tpu_torch.tasks.train_generator import GanEngine
+
+    sz = dict(GAN_SIZES, **(sizes or {}))
+    B = sz["batch"]
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    batch, centroids = gan_inputs(sz, args.seed)
+    out = {"sizes": sz}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = gan_config(sz, args.seed, tmp)
+        eng = GanEngine(cfg, device=device)
+        state = eng.create_state(cfg.seed, centroids)
+        logger = RunLogger(tmp, cfg, use_tensorboard=False)
+        losses = []
+
+        def on_pair(step, dm, gm):
+            losses.append({k: float(v) for k, v in {**dm, **gm}.items()})
+
+        for k in kernels:
+            k.launches = 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        try:
+            res = cli.train(eng, state, centroids,
+                            lambda epoch: (batch for _ in range(sz["pairs"])),
+                            logger, log_step=1, on_pair=on_pair)
+        finally:
+            logger.close()
+        sync()
+        out["loop_s"] = time.time() - t0
+        out["launches"] = {k.name: k.launches for k in kernels}
+        check_launches("gan", out["launches"], res["pairs"])
+        bad = [(i, k, v) for i, m in enumerate(losses) for k, v in m.items()
+               if not math.isfinite(v)]
+        if len(losses) != sz["pairs"] or bad:
+            fail(f"GAN training: {len(losses)} pairs, non-finite losses "
+                 f"{bad}")
+        out["losses"] = losses
+        log(f"  cli/train_generator.train: {res['pairs']} (D, G) pairs in "
+            f"{out['loop_s']:.1f}s (first pair included), every loss "
+            f"finite; last pair: D {losses[-1]['d_total']:.4f}, G "
+            f"{losses[-1]['g_total']:.4f}; launches of the port's kernels: "
+            "none")
+        # the epoch's generator checkpoint renders through models/gan
+        tree = load_pytree(os.path.join(tmp, "G_0.msgpack"))
+        params, sn, stats = sample_images.split_generator_ckpt(tree)
+        gen = load_variables(Generator(
+            emb_dim=sz["emb"], base_dim=sz["g_base"], target_size=sz["target"],
+            init_H=sz["grid"], init_W=sz["grid"], codebook_dim=sz["codebook"],
+            dtype=eng.dtype), params, sn, stats or None).to(device)
+        img = render(gen, torch.from_numpy(batch["code"][:2]).to(device))
+        if not (img.shape == (2, sz["target"], sz["target"], 3)
+                and bool(torch.isfinite(img).all())
+                and 0 <= float(img.min()) <= float(img.max()) <= 1):
+            fail("G_0.msgpack does not render to finite [0, 1] images")
+        out["g0_renders"] = True
+        del gen
+
+        placed = eng.place(batch)
+        table = torch.from_numpy(centroids).to(device)
+        fn = eng.chained_gd_step(sz["chain"])
+        state, dl, gl = fn(state, placed, table)   # warm
+        float(dl)
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            state, dl, gl = fn(state, placed, table)
+            float(dl)
+            best = min(best, time.perf_counter() - t0)
+        if not (math.isfinite(float(dl)) and math.isfinite(float(gl))):
+            fail(f"chained_gd_step: losses {float(dl)}, {float(gl)}")
+        out["chain_s"] = best
+        out["pairs_per_s"] = sz["chain"] / best
+        out["images_per_s"] = B * sz["chain"] / best
+        steps = {}
+        for name, step in (("d_step", eng.d_step), ("g_step", eng.g_step)):
+            times = []
+            for _ in range(3):
+                sync()
+                t0 = time.perf_counter()
+                step(state, placed, table)
+                sync()
+                times.append((time.perf_counter() - t0) * 1e3)
+            steps[name] = sorted(times)[1]
+        out["step_ms"] = steps
+        out["peak_bytes"] = torch.cuda.max_memory_allocated() if cuda else 0
+        log(f"  chained_gd_step({sz['chain']}), B={B}: "
+            f"{out['pairs_per_s']:.2f} (D, G) pairs/s, "
+            f"{out['images_per_s']:.1f} images/s; D-step "
+            f"{steps['d_step']:.2f} ms, G-step {steps['g_step']:.2f} ms "
+            f"(host clock, median of 3); peak "
+            f"{out['peak_bytes'] / 2**30:.2f} GiB ({card})")
+        out["conv_flop_per_pair"] = flop = gan_pair_conv_flops(
+            torch, eng, state, placed, table)
+        if not flop > 0:
+            fail("no convolution counted in a GAN pair")
+        if cuda:
+            out["profile"] = p = profile_gan_pair(torch, eng, state, placed,
+                                                  table)
+            conv_ms = p["device_ms_by_group"]["convolutions"]
+            p["conv_tflop_per_s"] = flop / conv_ms / 1e9
+            log(f"  one pair profiled: wall {p['wall_ms']:.2f} ms, device "
+                f"{p['device_ms']:.2f} ms, busy {p['busy_share']:.2f}; "
+                + ", ".join(f"{k} {v:.2f} ms" for k, v in
+                            p["device_ms_by_group"].items()) + f" ({card})")
+            log(f"  the pair's convolutions: {flop / 1e12:.4f} TFLOP "
+                "(torch.utils.flop_counter, from their shapes) in "
+                f"{conv_ms:.2f} ms of device time, "
+                f"{p['conv_tflop_per_s']:.1f} TFLOP/s ({card})")
+            log("  the glue's largest ops (device ms): " + ", ".join(
+                f"{k} {v:.2f}" for k, v in p["glue_top_ops_ms"].items()))
+        del eng, state, placed, table, fn
+        if cuda:
+            torch.cuda.empty_cache()
+    check = dict(sz, batch=sz["check"])
+    cb, cc = gan_inputs(check, args.seed + 1)
+    out["card_vs_cpu"] = gan_steps_card_vs_cpu(
+        torch, gan_config(check, args.seed, ".", fp32=True), cb, cc,
+        args.seed, device, log)
+    return out
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     try:
@@ -2962,9 +3348,19 @@ def main(argv=None) -> int:
     sample = run_sample_path(torch, args, kernels, log, card=card)
     sample["wall_s"] = time.time() - t0
     log(f"  phase (j) took {sample['wall_s']:.1f}s")
+    torch.cuda.empty_cache()
+    gz = GAN_SIZES
+    log(f"(k) GAN training: measure_gan's widths (G base {gz['g_base']}, D "
+        f"base {gz['d_base']}, {gz['target']} px, {gz['classes']} "
+        f"centroids, B={gz['batch']}, bf16) through cli/train_generator "
+        f"({card})")
+    t0 = time.time()
+    gan = run_gan_path(torch, args, kernels, log, card=card)
+    gan["wall_s"] = time.time() - t0
+    log(f"  phase (k) took {gan['wall_s']:.1f}s")
     paths = {"int8": path, **bf16_paths, "int8+fused_block": fused_path,
              "finetune": ft, "layout": layout, "pretrain": pt,
-             "sample": sample}
+             "sample": sample, "gan": gan}
 
     # (d) the kernels line and the device line: times per serving forward
     # drawn from VQA_LENGTH_MIX (mha_blhd_train: per VQA training step);

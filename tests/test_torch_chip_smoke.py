@@ -12,6 +12,7 @@ import os
 import sys
 from collections import Counter
 
+import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -24,6 +25,36 @@ from xlxmert_tpu_torch.models import lxmert  # noqa: E402
 from xlxmert_tpu_torch.ops import int8_matmul  # noqa: E402
 from xlxmert_tpu_torch.serving import lxmert_fused  # noqa: E402
 from xlxmert_tpu_torch.serving import lxmert_int8 as engine  # noqa: E402
+
+
+@pytest.fixture
+def share_the_cores():
+    """Torch's share of the CPU cores for the test: each pytest-xdist
+    worker's torch would start a thread per core, and with several
+    workers on one machine the many small ops of these tests wait on each
+    other's spinning threads (a test took 25 times as long as alone)."""
+    before = torch.get_num_threads()
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
+    yield
+    torch.set_num_threads(before)
+
+
+pytestmark = pytest.mark.usefixtures("share_the_cores")
+
+
+@pytest.fixture
+def short_stream(monkeypatch):
+    """chip_smoke's question stream cut for the path phases on the CPU:
+    fewer questions in smaller batches over a smaller catalog, and fewer
+    calibration samples. Every bucket still serves a batch, most of them
+    several with a partial last one, and the launch arithmetic is the
+    same at any size; a batch of 24 shares no shape with the checks' 8,
+    the evaluations' 32 or NLVR2's 64."""
+    monkeypatch.setattr(chip_smoke, "BATCH", 24)
+    monkeypatch.setattr(chip_smoke, "QUESTIONS", 192)
+    monkeypatch.setattr(chip_smoke, "IMAGES", 48)
+    monkeypatch.setattr(chip_smoke, "CALIB_SAMPLES", 24)
 
 
 def test_kernel_cases_cover_every_launch_of_each_full_width_forward():
@@ -111,7 +142,8 @@ def test_kernel_cases_cover_every_launch_of_each_full_width_forward():
     assert len(hb) == 16
 
 
-def test_path_phase_launches_exactly_the_kernel_phase_cases(monkeypatch):
+def test_path_phase_launches_exactly_the_kernel_phase_cases(monkeypatch,
+                                                            short_stream):
     # intermediate_size != 2 * hidden_size, as at full width: the dense
     # cases are keyed by (K, N)
     cfg = LxmertConfig(vocab_size=4100, hidden_size=32,
@@ -192,7 +224,8 @@ def test_path_phase_launches_exactly_the_kernel_phase_cases(monkeypatch):
                                   + 3}[name]
 
 
-def test_bf16_phase_launches_exactly_the_kernel_phase_cases(monkeypatch):
+def test_bf16_phase_launches_exactly_the_kernel_phase_cases(monkeypatch,
+                                                            short_stream):
     """Phase (e) on the CPU at a small width, "auto" attention taken as
     the card resolves it ("blhd"): each configuration serves every
     question and calls each kernel wrapper at exactly the kernel phase's
@@ -281,7 +314,8 @@ def test_bf16_phase_launches_exactly_the_kernel_phase_cases(monkeypatch):
     assert seen["fused_ffn"] == expected(ffn, {False: 2, True: 2})
 
 
-def test_fused_phase_launches_exactly_the_kernel_phase_cases(monkeypatch):
+def test_fused_phase_launches_exactly_the_kernel_phase_cases(monkeypatch,
+                                                             short_stream):
     """Phase (f) on the CPU at a small width: serve(fused=True) answers
     every question; its calibration forwards call the int8 engine's
     wrappers only (mha_blhd and the dynamic int8 dense), its serving
@@ -483,7 +517,8 @@ SMALL = dict(vocab_size=4100, hidden_size=128, num_attention_heads=2,
 
 
 def test_layout_phase_launches_exactly_the_kernel_phase_cases(monkeypatch):
-    """Phase (h) on the CPU at a small width (fewer chained forwards):
+    """Phase (h) on the CPU at a small width (fewer chained forwards of a
+    smaller batch):
     every variant answers as base, and mha_hbatch is called at exactly
     the kernel phase's (shape, count) cases in the hbatch variant's
     forwards, and nowhere else."""
@@ -492,6 +527,7 @@ def test_layout_phase_launches_exactly_the_kernel_phase_cases(monkeypatch):
     cfg = LxmertConfig(**SMALL)
     monkeypatch.setattr(chip_smoke, "LAYOUT_K", 2)
     monkeypatch.setattr(chip_smoke, "LAYOUT_REPEATS", 1)
+    monkeypatch.setattr(chip_smoke, "BATCH", 24)
     calls = Counter()
     orig = attention.mha_hbatch
 
@@ -519,13 +555,15 @@ def test_layout_phase_launches_exactly_the_kernel_phase_cases(monkeypatch):
 
 
 def test_pretrain_phase_launches_exactly_the_kernel_phase_cases(monkeypatch):
-    """Phase (i) on the CPU at a small width: both routes pre-train
+    """Phase (i) on the CPU at a small width and batch: both routes pre-train
     PT_STEPS round-robin steps, evaluate and save, the step's parts are
     timed, and each task's card-vs-CPU step agrees (both sides on the CPU
     here). The training attention is called at exactly the kernel phase's
     (shape, type, mask) cases: 34 a full-width step, only on the
     "pallas_blhd" route."""
     cfg = LxmertConfig(**SMALL)
+    # a smaller pre-training batch, which no other training case shares
+    monkeypatch.setattr(chip_smoke, "PT_BATCH", 16)
     calls = Counter()
     orig = lxmert.mha_blhd_train
 

@@ -8,18 +8,22 @@ import os
 import sys
 from collections import Counter
 
+import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
+from test_torch_chip_smoke import share_the_cores  # noqa: E402,F401
 from xlxmert_tpu_torch.core.config import LxmertConfig  # noqa: E402
 from xlxmert_tpu_torch.serving import lxmert_int8 as engine  # noqa: E402
 
 SMALL = dict(vocab_size=4100, hidden_size=128, num_attention_heads=2,
              intermediate_size=96, l_layers=2, x_layers=1, r_layers=1,
              visual_feat_dim=16, num_clusters=50)
+
+pytestmark = pytest.mark.usefixtures("share_the_cores")
 
 
 class _CpuTorch:
@@ -115,7 +119,11 @@ def test_fused_mha_gradient_check_runs_on_the_cpu():
         assert set(r["max_abs_err"]) == {"out", "q", "k", "v", "bias"}
         # the same einsum backward on both sides here
         assert all(r["max_abs_err"][n] == 0 for n in "qkv")
+        # the fp32 case's bf16 bias gradient: one bf16 step of its largest
+        assert ("bias_bar" in r) == (r["dtype"] == "float32")
     assert sum("the backward raises" in m for m in log) == 3
+    assert [chip_smoke.bf16_step(x) for x in (1.0, 3.0, 0.015, 0.0)] == [
+        2.0 ** -7, 2.0 ** -6, 2.0 ** -14, 0.0]
 
 
 def test_int8_phase_times_the_card_with_its_queue_kept_full(monkeypatch):

@@ -16,6 +16,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
+from test_torch_chip_smoke import share_the_cores  # noqa: E402,F401
 from xlxmert_tpu_torch.core.config import LxmertConfig  # noqa: E402
 from xlxmert_tpu_torch.ops import int8_matmul  # noqa: E402
 from xlxmert_tpu_torch.serving import lxmert_int8 as engine  # noqa: E402
@@ -27,6 +28,8 @@ CFG = dict(vocab_size=4100, hidden_size=32, num_attention_heads=2,
            visual_feat_dim=16)
 SIZES = dict(batch=3, text=8, batches=2, grid=4, nar_steps=3, clusters=30,
              check=2, base_dim=8, target_size=16, codebook_dim=8)
+
+pytestmark = pytest.mark.usefixtures("share_the_cores")
 
 
 class FakeKernel:

@@ -16,7 +16,9 @@ import pytest
 import torch
 
 from xlxmert_tpu_torch.core.config import LxmertConfig
-from xlxmert_tpu_torch.ops import attention, fused_block, ffn, int8_matmul
+from xlxmert_tpu_torch.ops import (
+    attention, fused_block, ffn, int8_matmul, quant,
+)
 from xlxmert_tpu_torch.ops.quant import quantize_weight, with_activation_scale
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
@@ -880,3 +882,66 @@ def test_nar_decode_steps_match_the_cpu(cuda, int8):
                            heads=("obj",))["obj_logits"]
             assert chip_smoke.cosine(card, got) > 0.99
             assert chip_smoke.tie_aware_agreement(card, got) >= 0.9
+
+
+def test_fused_mha_grad_check_does_not_depend_on_the_phase_order(cuda):
+    """chip_smoke's C1 check after the sampler cases have drawn from the
+    same generator first (the order that failed when the fp32 bias
+    gradient was held to 1e-4): the bf16 bias's gradient is held to one
+    bf16 step of its largest value, whatever the generator's state. The
+    kernel-phase timers are replaced: only the draws matter here."""
+    cfg = LxmertConfig()
+    sz = chip_smoke.SAMPLE_SIZES
+    rng = torch.Generator(device="cuda").manual_seed(0)
+    saved = chip_smoke.queued_ms, chip_smoke.time_ms
+    chip_smoke.queued_ms = lambda torch_, fn: (fn(), (1.0, True))[1]
+    chip_smoke.time_ms = lambda torch_, fn: (fn(), 1.0)[1]
+    try:
+        chip_smoke.check_attention(
+            torch, torch.nn.functional, attention, cfg, rng, lambda m: None,
+            cases=chip_smoke.sampler_attention_cases(cfg, sz["batch"],
+                                                     sz["text"]))
+        chip_smoke.check_int8(
+            torch, int8_matmul, quant, cfg, chip_smoke.BATCH,
+            3129, rng, lambda m: None,
+            cases=chip_smoke.sampler_dense_cases(cfg, sz["batch"],
+                                                 sz["text"],
+                                                 sz["clusters"]))
+    finally:
+        chip_smoke.queued_ms, chip_smoke.time_ms = saved
+    rows = chip_smoke.check_fused_mha_grad(torch, attention, ffn, cfg, rng,
+                                           lambda m: None)
+    fp32 = [r for r in rows if r["dtype"] == "float32"]
+    assert len(fp32) == 2
+    assert all(r["max_abs_err"]["bias"] <= r["bias_bar"] for r in fp32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gan_steps_match_the_cpu(cuda, dtype):
+    """One D-step and one G-step of the GAN trainer on the card against
+    the same steps on the CPU from the same fresh state and batch, at a
+    small width (64 px, base 16, 50 classes, B=4): the losses, the
+    gradients' cosine (Adam's mu; noise scales apart, their gradients
+    come from each device's draw) and the u, v written back. fp32 (TF32
+    off): chip_smoke's GAN_STEP_BARS and GAN_SN_TOL; bf16 (the same
+    bf16 convolutions summed in another order, and the CPU's fp32
+    product of the bf16 ACGAN operands): losses within 2e-2 relative,
+    cosine > 0.99, u, v within 1e-5 (computed from the fp32 weights)."""
+    from xlxmert_tpu_torch.core.config import GanConfig
+
+    sizes = dict(batch=4, target=64, grid=8, emb=64, classes=50, g_base=16,
+                 d_base=16, codebook=32)
+    batch, centroids = chip_smoke.gan_inputs(sizes, 0)
+    cfg = GanConfig(emb_dim=64, codebook_dim=32, g_base_dim=16,
+                    d_base_dim=16, target_size=64, n_classes=50,
+                    batch_size=4, mixed_precision=dtype == "bfloat16")
+    bars = chip_smoke.GAN_STEP_BARS, chip_smoke.GAN_SN_TOL
+    if dtype == "bfloat16":
+        chip_smoke.GAN_STEP_BARS, chip_smoke.GAN_SN_TOL = (2e-2, 0.99), 1e-5
+    try:
+        out = chip_smoke.gan_steps_card_vs_cpu(torch, cfg, batch, centroids,
+                                               0, "cuda", lambda m: None)
+    finally:
+        chip_smoke.GAN_STEP_BARS, chip_smoke.GAN_SN_TOL = bars
+    assert set(out["grad_cosine"]) == {"d", "g"}
+    assert "d_cls_loss" in out["loss_rel_diff"]

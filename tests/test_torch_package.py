@@ -129,6 +129,28 @@ def test_sampling_entry_points_need_the_card_unless_asked_for_the_cpu(
                 .parameters()).device.type == "cpu"
 
 
+def test_gan_training_entry_points_need_the_card_unless_asked_for_the_cpu(
+        no_cuda, tmp_path):
+    from xlxmert_tpu_torch.cli import train_generator as cli
+    from xlxmert_tpu_torch.core.config import GanConfig
+    from xlxmert_tpu_torch.tasks.train_generator import GanEngine
+
+    cfg = GanConfig(emb_dim=16, codebook_dim=8, g_base_dim=8, d_base_dim=8,
+                    init_H=4, init_W=4, target_size=16, n_classes=3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        GanEngine(cfg)
+    np.save(tmp_path / "c.npy", np.zeros((3, 16), np.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["--images_dir", str(tmp_path), "--centroids",
+                  str(tmp_path / "c.npy"), "--cluster_pkl", "x",
+                  "--output", str(tmp_path / "out")])
+    eng = GanEngine(cfg, device="cpu")
+    state = eng.create_state(0, np.zeros((3, 16), np.float32))
+    assert eng.device.type == "cpu" and next(
+        state.D.parameters()).device.type == "cpu"
+    assert state.generator.device.type == "cpu"
+
+
 def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
     from xlxmert_tpu_torch.ops import attention, fused_block, int8_matmul
     from xlxmert_tpu_torch.ops.quant import (

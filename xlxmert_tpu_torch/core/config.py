@@ -1,5 +1,5 @@
 """Typed configuration (port of xlxmert_tpu/core/config.py's
-LxmertConfig, TrainConfig and FinetuneConfig).
+LxmertConfig, TrainConfig, FinetuneConfig and GanConfig).
 
 The backbone shape and the trainer knobs, with the JAX package's fields
 and defaults, so a config file written by either package reads in the
@@ -209,3 +209,53 @@ class FinetuneConfig(TrainConfig):
     train: str = "train,nominival"
     valid: str = "minival"
     test: Optional[str] = None
+
+
+@dataclass(frozen=True)
+class GanConfig(_YamlMixin):
+    """SPADE GAN generator training (configs.py:47-164,
+    train_generator.bash:1-24)."""
+
+    # model shape
+    emb_dim: int = 2048
+    codebook_dim: int = 256
+    g_base_dim: int = 32
+    d_base_dim: int = 64
+    mod_dim: int = 128
+    init_H: int = 8
+    init_W: int = 8
+    resize_target_size: int = 512
+    target_size: int = 256
+    extra_layers: int = 0
+    norm_type: str = "spade_in"
+    SN: bool = True
+    ACGAN: bool = True
+    n_classes: int = 10000
+
+    # losses (configs.py:119-134)
+    gan_loss_type: str = "hinge"
+    lambda_adv: float = 1.0
+    lambda_cls: float = 1.0  # ACGAN per-cell cluster CE
+    lambda_feat: float = 10.0  # perceptual feature loss via encoder
+    lambda_feat_match: float = 10.0  # discriminator feature matching
+    perceptual_encoder: str = "resnet50"
+
+    # optimization (main.py:145-232; Adam beta1=0)
+    g_lr: float = 4e-4
+    d_lr: float = 1e-4
+    adam_beta1: float = 0.0
+    adam_beta2: float = 0.999
+    batch_size: int = 32
+    epochs: int = 101
+    seed: int = 9595
+    mixed_precision: bool = True
+    rng_impl: str = "rbg"  # see TrainConfig.rng_impl
+
+    # data
+    data_root: str = "data"
+    cluster_src: str = "mscoco_train"
+    num_workers: int = 4
+
+    # io
+    output: str = "snap/generator"
+    load: Optional[str] = None

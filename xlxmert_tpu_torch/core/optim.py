@@ -25,6 +25,11 @@ rule "LayerNorm.weight" would decay.
 
 Parameters are updated in place (`torch.no_grad`), which saves a copy
 of the model per update; the JAX package returns new arrays.
+
+`Adam` is the GAN trainer's `optax.adam(lr, b1, b2, eps)`
+(tasks/train_generator.py): one step count for the whole tree, bias
+correction of both moments with count + 1, eps added outside the square
+root of the corrected second moment, no weight decay, no clipping.
 """
 from __future__ import annotations
 
@@ -154,3 +159,42 @@ def make_optimizer(params: Dict[str, torch.Tensor], lr: float,
                    adam_eps: float = 1e-6) -> ReferenceAdamW:
     return ReferenceAdamW(params, lr, total_steps, warmup_ratio,
                           weight_decay, clip_grad_norm, eps=adam_eps)
+
+
+class Adam:
+    """optax.adam(lr, b1, b2, eps) over the named parameters `params`
+    ({name: fp32 tensor}, updated in place), op for op in fp32:
+      mu = (1 - b1) g + b1 mu;  nu = (1 - b2) g^2 + b2 nu;  t = count + 1;
+      p += -lr * (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps).
+    State: `count` (optax's ScaleByAdamState.count), `mu` and `nu`
+    ({name: tensor}). A None gradient counts as zero, as the JAX
+    package's dense gradient tree holds zeros."""
+
+    def __init__(self, params: Dict[str, torch.Tensor], lr: float,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        self.params = params
+        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
+        self.mu = {n: torch.zeros_like(p) for n, p in params.items()}
+        self.nu = {n: torch.zeros_like(p) for n, p in params.items()}
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, grads: Dict[str, Optional[torch.Tensor]]) -> None:
+        # scalars are the float32 values the jitted JAX update uses,
+        # passed to torch as Python floats
+        f32 = np.float32
+        b1, b2 = f32(self.b1), f32(self.b2)
+        t = f32(self.count + 1)
+        c1 = float(f32(1) - b1 ** t)
+        c2 = float(f32(1) - b2 ** t)
+        a1, a2 = float(f32(1 - self.b1)), float(f32(1 - self.b2))
+        neg_lr = float(f32(-self.lr))
+        eps = float(f32(self.eps))
+        for name, p in self.params.items():
+            g = grads.get(name)
+            g = torch.zeros_like(p) if g is None else g.to(p.dtype)
+            mu = a1 * g + float(b1) * self.mu[name]
+            nu = a2 * (g * g) + float(b2) * self.nu[name]
+            p.add_((mu / c1) / (torch.sqrt(nu / c2) + eps) * neg_lr)
+            self.mu[name], self.nu[name] = mu, nu
+        self.count += 1
