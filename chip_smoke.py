@@ -36,9 +36,9 @@ Phases, each of which fails the script on error:
       calibration batch, with and without a bias, beside SDPA and
       mha_blhd (B1, the same function) at the same shapes. fused_mha's
       gradients on the card (kernel forward, einsum backward) are held
-      to the CPU's (the bf16 bias's gradient in the fp32 case to one
-      bf16 step of its largest value), and mha_blhd, mha_hbatch and
-      fused_ffn must refuse a backward;
+      to the CPU's (the bf16 bias's gradient in the fp32 case element by
+      element to 2^-7 |r| plus its sum's fp32 accumulation bound), and
+      mha_blhd, mha_hbatch and fused_ffn must refuse a backward;
   (c) the serving path at full width (LxmertConfig(): 9/5/5 layers, 768
       hidden, 2048-d grid features, 3,129 answers) with random weights
       from --seed: a 512-image bf16 catalog in device memory, 2,048
@@ -135,6 +135,29 @@ Phases, each of which fails the script on error:
       and G-step at B=2 on the card against the CPU from the same state
       and batch (GAN_STEP_BARS on the losses and the gradients' cosine,
       GAN_SN_TOL on the u, v written back);
+  (l) the offline feature factory at bench.py measure_factory's widths,
+      random weights from --seed, no port kernel (cuBLAS, cuDNN, plain
+      PyTorch): k-means (vocab/kmeans) at N=131,072 randn rows, K=10,000,
+      D=2,048, one chunked Lloyd step timed (rows/s beside its fp32
+      bound, peak memory), then kmeans(init="random", n_iter=2) and
+      assign as cli/run_kmeans calls them, and one Lloyd step at N=8,192,
+      K=512 held to the CPU's (kmeans_agreement); the X-152-32x8d-FPN
+      grid extractor (models/detectron) at B=8 on an 800x1344 canvas
+      through cli/extract_features.extract_batch, bf16 and fp32
+      (img/s, peak, a profiled batch's busy share, the convolutions'
+      FLOPs counted from their shapes and their rate), bf16 held to fp32
+      (BF16_COSINE, BF16_MAX_REL); fp32 with TF32 off against the CPU
+      (cosine >= 0.99999, max |d| <= 1e-3 of max |ref|): the extractor
+      at one 256x384 image, and ROIAlign and fc6 from the card's FPN of
+      one 800x1333 image over grid boxes on every level P2..P5; the bbox
+      path through cli/extract_bbox_features.extract_batch at B=4, 1,000
+      proposals, 1,601 classes (img/s, its time split into the backbone
+      with the RPN head, the proposal stage with its NMS, the box head
+      and select_top_features), and at one 256x384 image the card
+      against the CPU unit by unit from the card's own inputs (the RPN
+      outputs by cosine, the proposal stage's ids but for near-tie
+      swaps, the box head's class scores, fc6 and fc7 by cosine, the
+      selection's kept indices and obj_id exactly);
   (d) one JSON line listing the kernels (times per serving forward of
       the length mix; mha_blhd_train's per training step, mha_hbatch's
       per layout forward), then the device line last.
@@ -145,6 +168,7 @@ repository, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -194,6 +218,8 @@ PER_FORWARD = {
     "pretrain xla": {},
     # (k): GAN training (cuDNN convolutions, cuBLAS): no port kernel
     "gan": {},
+    # (l): the offline factory (cuDNN, cuBLAS, plain PyTorch): none
+    "factory": {},
 }
 # serve(bf16=True, attention=..., fused_ffn=...) of each bf16 path, and
 # the attention route its CPU copy takes (None: no card-vs-CPU check)
@@ -322,6 +348,21 @@ def bound(nbytes: float, ops: float, kind: str) -> dict:
     return {"bound_ms": max(t_bytes, t_ops), "bytes_ms": t_bytes,
             "ops_ms": t_ops,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+@contextlib.contextmanager
+def tf32_off(torch):
+    """TF32 off for products and convolutions (cuDNN's default has it on
+    for fp32 convolutions), the flags restored after."""
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
 
 
 # ---------------------------------------------------------------------------
@@ -524,6 +565,40 @@ def bf16_step(x: float) -> float:
     return 2.0 ** (math.floor(math.log2(x)) - 7) if x > 0 else 0.0
 
 
+# the per-element bar of a bf16 bias gradient: one bf16 step at |r|
+# (2^-7 |r| bounds the spacing between two neighbours) plus `t`
+BIAS_GRAD_REL = 2.0 ** -7
+FP32_UNIT = 2.0 ** -24
+
+
+def bias_grad_sum_bound(torch, q, k, v, bias, grad):
+    """t of each bias element's gradient: the fp32 accumulation bound of
+    its sum over heads and queries, d bias[b, j] = sum_{h, i} ds[b, h, i,
+    j], for the card and the CPU each summing in their own order: 2
+    gamma_n * sum |ds| with n = H * Lq terms and gamma_n = n u / (1 - n
+    u), u = 2^-24. ds, the scores' gradient p * (dp - rowsum(p * dp)),
+    is computed here in float64 from the CPU inputs (q, k, v (B, H, L,
+    D), the (B, Lk) bias, the output's gradient)."""
+    q, k, v, g = (t.detach().cpu().double() for t in (q, k, v, grad))
+    B, H, Lq, D = q.shape
+    s = q @ k.transpose(-1, -2) / math.sqrt(D) \
+        + bias.detach().cpu().double().reshape(B, 1, 1, -1)
+    p = torch.softmax(s, dim=-1)
+    dp = g @ v.transpose(-1, -2)
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    n = H * Lq
+    gamma = n * FP32_UNIT / (1 - n * FP32_UNIT)
+    return 2 * gamma * ds.abs().sum(dim=(1, 2))
+
+
+def bias_grad_excess(a, r, t) -> float:
+    """The largest |a - r| - (2^-7 |r| + t) over the elements of two bf16
+    bias gradients (the card's a, the CPU's r) and the bound t: > 0
+    fails."""
+    a, r, t = (x.double().cpu() for x in (a, r, t))
+    return float(((a - r).abs() - (BIAS_GRAD_REL * r.abs() + t)).max())
+
+
 def check_fused_mha_grad(torch, attention, ffn, cfg, rng, log,
                          device="cuda"):
     """C1 on the card: fused_mha's gradients (q, k, v and a bias that
@@ -531,9 +606,9 @@ def check_fused_mha_grad(torch, attention, ffn, cfg, rng, log,
     against the einsum's gradients on the CPU at the model's widths, B=
     CALIB_BATCH, both cross-attention shapes, fp32 (1e-4) and bf16 (2e-2,
     the fp32 and the bf16 softmax); the bias, which the kernel takes in
-    bf16 only, so that its gradient is bf16, in the fp32 case to one bf16
-    step of its largest value; and mha_blhd, mha_hbatch and fused_ffn
-    under grad: their backward raises."""
+    bf16 only, so that its gradient is bf16, in the fp32 case element by
+    element to 2^-7 |r| + t (bias_grad_sum_bound); and mha_blhd,
+    mha_hbatch and fused_ffn under grad: their backward raises."""
     H, HD = cfg.num_attention_heads, cfg.hidden_size
     D, B = HD // H, CALIB_BATCH
     rows = []
@@ -567,15 +642,23 @@ def check_fused_mha_grad(torch, attention, ffn, cfg, rng, log,
                 if name == "bias" and dt == "float32":
                     # the kernel takes a bf16 bias, so its gradient is
                     # bf16: near a rounding tie the card and the CPU
-                    # round one fp32 sum a bf16 step apart, and a 1e-4
-                    # bar lies below that step. The bar: one bf16 step
-                    # of the CPU gradient's largest |value|, absolute
-                    bias_bar = bf16_step(r.abs().max().item())
-                    if not errs[name] <= bias_bar:
+                    # round one fp32 sum a bf16 step apart, below which
+                    # a 1e-4 bar lies. The bar, per element: one bf16
+                    # step at |r| plus the sum's fp32 accumulation bound
+                    t = bias_grad_sum_bound(
+                        torch, q, k, v, bias.to(torch.bfloat16), grad)
+                    excess = bias_grad_excess(a, r, t)
+                    bias_bar = {"rel": BIAS_GRAD_REL,
+                                "t_max": float(t.max()),
+                                "excess": excess,
+                                "absolute_bar_before": bf16_step(
+                                    r.abs().max().item())}
+                    if not excess <= 0:
                         fail(f"fused_mha backward {lq}x{lk} {dt} fast="
-                             f"{fast}: bias differs from the CPU's by "
-                             f"{errs[name]} (bar {bias_bar}: one bf16 step "
-                             "of its largest value)")
+                             f"{fast}: an element of the bias gradient "
+                             f"differs from the CPU's by {excess} more "
+                             f"than 2^-7 |r| + t (t up to "
+                             f"{bias_bar['t_max']})")
                     continue
                 # tol absolute and relative, as torch.testing.assert_close
                 excess = ((a - r).abs() - tol * r.abs()).max().item()
@@ -591,7 +674,9 @@ def check_fused_mha_grad(torch, attention, ffn, cfg, rng, log,
                 f"fast={fast!s:5} max |card - CPU| " + "  ".join(
                     f"{n} {e:.2e}" for n, e in errs.items())
                 + f" (tol {tol:g} + {tol:g} relative"
-                + (f"; bias {bias_bar:g}" if dt == "float32" else "") + ")")
+                + (f"; bias 2^-7 |r| + t, t <= {bias_bar['t_max']:.2e}, "
+                   f"excess {bias_bar['excess']:.2e}" if dt == "float32"
+                   else "") + ")")
     q, k, v = (torch.randn(B, FT_TEXT, HD, generator=rng, device=rng.device)
                .to(device, torch.bfloat16).requires_grad_() for _ in range(3))
     x = torch.randn(B * FT_TEXT, HD, generator=rng, device=rng.device).to(
@@ -2925,11 +3010,7 @@ def gan_steps_card_vs_cpu(torch, cfg, batch, centroids, seed, device, log):
     from xlxmert_tpu_torch.models.gan import variables_of
     from xlxmert_tpu_torch.tasks.train_generator import GanEngine
 
-    tf32 = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
+    with tf32_off(torch):
         runs = {}
         for where in (device, "cpu"):
             eng = GanEngine(cfg, device=where)
@@ -2950,9 +3031,6 @@ def gan_steps_card_vs_cpu(torch, cfg, batch, centroids, seed, device, log):
                 "sn": {"d": sn_d, "g": variables_of(state.G)["sn"]},
                 "s": time.time() - t0}
             del eng, state
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = tf32
     card, host = runs[device], runs["cpu"]
     loss_bar, cos_bar = GAN_STEP_BARS
     out = {"loss_rel_diff": {}, "grad_cosine": {}, "sn_rel_diff": {},
@@ -2987,31 +3065,25 @@ def gan_steps_card_vs_cpu(torch, cfg, batch, centroids, seed, device, log):
     return out
 
 
-def profile_gan_pair(torch, eng, state, batch, table):
-    """One (D, G) pair timed on the host clock (profiler off), then traced
-    by torch.profiler: its device time by group (the convolutions: cuDNN
-    under aten's convolution ops; the ACGAN product: under the
-    "acgan_product" range, both directions; the rest: glue) and the
-    card's busy share (device time over wall time)."""
+def profile_groups(torch, fn, groups) -> dict:
+    """fn timed once on the host clock (profiler off), then traced by
+    torch.profiler: its device time, the busy share (device over wall),
+    the device time of each group ({name: substring of an op's or an
+    ancestor's name}, the first that matches), the rest as "glue", and
+    the glue's largest ops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def pair():
-        eng.d_step(state, batch, table)
-        eng.g_step(state, batch, table)
-
-    pair()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    pair()
+    fn()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        pair()
+        fn()
         torch.cuda.synchronize()
-    total, groups = 0.0, {"convolutions": 0.0, "acgan_product": 0.0}
-    glue_ops = {}
+    total, by, other = 0.0, {g: 0.0 for g in groups}, {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             total += e.time_range.elapsed_us() / 1e3
@@ -3023,32 +3095,31 @@ def profile_gan_pair(torch, eng, state, batch, table):
         while p is not None:
             names.append(p.name)
             p = p.cpu_parent
-        if any("acgan_product" in n for n in names):
-            groups["acgan_product"] += own
-        elif any("conv" in n for n in names):
-            groups["convolutions"] += own
+        group = next((g for g, pat in groups.items()
+                      if any(pat in n for n in names)), None)
+        if group is None:
+            other[e.name] = other.get(e.name, 0.0) + own
         else:
-            glue_ops[e.name] = glue_ops.get(e.name, 0.0) + own
+            by[group] += own
     if not total:
-        fail("the GAN pair's trace holds no device time")
-    groups["glue"] = total - groups["convolutions"] - groups["acgan_product"]
-    top = sorted(glue_ops.items(), key=lambda kv: -kv[1])[:8]
+        fail("a profiled run holds no device time")
+    by["glue"] = total - sum(by.values())
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall, "device_ms": total, "busy_share": total / wall,
-            "device_ms_by_group": groups, "glue_top_ops_ms": dict(top)}
+            "device_ms_by_group": by, "glue_top_ops_ms": dict(top)}
 
 
-def gan_pair_conv_flops(torch, eng, state, batch, table):
-    """The floating-point operations of one (D, G) pair's convolutions,
-    forward and backward, counted from their shapes by
-    torch.utils.flop_counter (aten.convolution and
-    aten.convolution_backward)."""
+def conv_flops(torch, fn) -> float:
+    """The floating-point operations of fn's convolutions, forward and
+    backward, counted from their shapes by torch.utils.flop_counter
+    (aten.convolution and aten.convolution_backward)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     with FlopCounterMode(display=False) as fc:
-        eng.d_step(state, batch, table)
-        eng.g_step(state, batch, table)
-    return sum(v for k, v in fc.get_flop_counts()["Global"].items()
-               if str(k) in ("aten.convolution", "aten.convolution_backward"))
+        fn()
+    return float(sum(v for k, v in fc.get_flop_counts()["Global"].items()
+                     if str(k) in ("aten.convolution",
+                                   "aten.convolution_backward")))
 
 
 def run_gan_path(torch, args, kernels, log, device="cuda", sizes=None,
@@ -3058,7 +3129,7 @@ def run_gan_path(torch, args, kernels, log, device="cuda", sizes=None,
     pairs, every loss finite, G_0.msgpack written and rendered through
     models/gan.render; chained_gd_step(`chain`) timed as measure_gan
     times it ((D, G) pairs/s, images/s); a D-step's and a G-step's time,
-    the convolutions' FLOPs in a pair (gan_pair_conv_flops), the peak
+    the convolutions' FLOPs in a pair (conv_flops), the peak
     memory and (on the card) a profiled pair's busy share, device time
     by group and the convolutions' rate; one fp32 D-step and G-step held to the CPU's
     (gan_steps_card_vs_cpu). No kernel of the port lies on this path:
@@ -3168,13 +3239,19 @@ def run_gan_path(torch, args, kernels, log, device="cuda", sizes=None,
             f"{steps['d_step']:.2f} ms, G-step {steps['g_step']:.2f} ms "
             f"(host clock, median of 3); peak "
             f"{out['peak_bytes'] / 2**30:.2f} GiB ({card})")
-        out["conv_flop_per_pair"] = flop = gan_pair_conv_flops(
-            torch, eng, state, placed, table)
+
+        def pair():
+            eng.d_step(state, placed, table)
+            eng.g_step(state, placed, table)
+
+        out["conv_flop_per_pair"] = flop = conv_flops(torch, pair)
         if not flop > 0:
             fail("no convolution counted in a GAN pair")
         if cuda:
-            out["profile"] = p = profile_gan_pair(torch, eng, state, placed,
-                                                  table)
+            pair()
+            out["profile"] = p = profile_groups(
+                torch, pair, {"acgan_product": "acgan_product",
+                              "convolutions": "conv"})
             conv_ms = p["device_ms_by_group"]["convolutions"]
             p["conv_tflop_per_s"] = flop / conv_ms / 1e9
             log(f"  one pair profiled: wall {p['wall_ms']:.2f} ms, device "
@@ -3195,6 +3272,537 @@ def run_gan_path(torch, args, kernels, log, device="cuda", sizes=None,
     out["card_vs_cpu"] = gan_steps_card_vs_cpu(
         torch, gan_config(check, args.seed, ".", fp32=True), cb, cc,
         args.seed, device, log)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# (l) the offline feature factory
+# ---------------------------------------------------------------------------
+
+# bench.py measure_factory's widths: one Lloyd iteration at N=131,072,
+# K=10,000, D=2,048 (tiles of 65,536 rows); X-152-32x8d-FPN grid
+# extraction at 800x1344 (images of 800x1333), B=8. The bbox path at the
+# CLI's B=4, 1,000 proposals, 1,601 classes, 36 features. The card-vs-CPU
+# checks: one Lloyd step at N=8,192, K=512; one image on a 256x384
+# canvas; ROIAlign and fc6 at the grid canvas, from the card's FPN of one
+# image, over grid boxes of LEVEL_GRIDS (P2..P5). `config` overrides
+# DetectronConfig's fields (the CPU test's tiny one)
+FACTORY_SIZES = dict(rows=131072, clusters=10000, dim=2048, chunk=65536,
+                     check_rows=8192, check_clusters=512, grid_batch=8,
+                     canvas=(800, 1344), image=(800, 1333), grid=8,
+                     timed=3, check_canvas=(256, 384), bbox_batch=4,
+                     proposals=1000, classes=1601, num_features=36,
+                     config=None)
+KMEANS_AGREE = 0.999   # share of ids equal, card against CPU
+KMEANS_TOL = 1e-5      # distances, centroids, inertia (see kmeans_agreement)
+GRID_COSINE = 0.99999  # fp32 features (and RPN outputs), card against CPU
+GRID_MAX_REL = 1e-3    # max |d| over the CPU's max |value|
+# bf16 grid features against fp32 on the card: 0.999960 and 1.13e-2
+# measured at measure_factory's widths (H100, chip_smoke (l)); the bars
+# leave 2.5x and 2.8x of that
+BF16_COSINE = 0.9999
+BF16_MAX_REL = 2.0 ** -5
+# grid sizes whose boxes over an 800x1333 image fall on P2, P3 (the
+# extractor's 8x8), P4, P5 and P5
+LEVEL_GRIDS = (16, 8, 4, 2, 1)
+
+
+def kmeans_agreement(x, c0, card, host, tol=KMEANS_TOL,
+                     agree_bar=KMEANS_AGREE) -> dict:
+    """One Lloyd step from centroids c0 on two devices, `card` and
+    `host` each {"ids", "centroids", "inertia"} (numpy), held to the
+    bars: at least agree_bar of the ids equal; on every row that differs
+    the two chosen centroids' distances (float64, from c0) within tol *
+    (|x|^2 + |c|^2); the centroids of clusters whose members agree
+    within tol * max |x|; the inertia within tol relative. Returns the
+    numbers and "failures", the bars missed."""
+    import numpy as np
+
+    x = np.asarray(x, np.float64)
+    c0 = np.asarray(c0, np.float64)
+    ia, ib = np.asarray(card["ids"]), np.asarray(host["ids"])
+    diff = np.nonzero(ia != ib)[0]
+    ca, cb = c0[ia[diff]], c0[ib[diff]]
+    da = ((x[diff] - ca) ** 2).sum(axis=1)
+    db = ((x[diff] - cb) ** 2).sum(axis=1)
+    scale = (x[diff] ** 2).sum(axis=1) + np.maximum(
+        (ca ** 2).sum(axis=1), (cb ** 2).sum(axis=1))
+    dist_excess = float((np.abs(da - db) - tol * scale).max()) \
+        if len(diff) else 0.0
+    clean = np.ones(len(c0), bool)
+    clean[ia[diff]] = False
+    clean[ib[diff]] = False
+    cent_err = float(np.abs(np.asarray(card["centroids"], np.float64)[clean]
+                            - np.asarray(host["centroids"], np.float64)[clean]
+                            ).max(initial=0.0))
+    cent_bar = tol * float(np.abs(x).max())
+    inertia_rel = abs(float(card["inertia"]) - float(host["inertia"])) / \
+        max(abs(float(host["inertia"])), 1e-30)
+    out = {"agree": float((ia == ib).mean()), "differing_rows": len(diff),
+           "distance_excess": dist_excess, "clean_clusters":
+           int(clean.sum()), "centroid_max_err": cent_err,
+           "centroid_bar": cent_bar, "inertia_rel_diff": inertia_rel}
+    out["failures"] = [msg for ok, msg in (
+        (out["agree"] >= agree_bar,
+         f"{out['agree']:.5f} of the ids agree (bar {agree_bar})"),
+        (dist_excess <= 0, "a differing row's two distances differ by "
+         f"{dist_excess} more than {tol} (|x|^2 + |c|^2)"),
+        (cent_err <= cent_bar, f"centroids differ by {cent_err} (bar "
+         f"{cent_bar})"),
+        (inertia_rel <= tol, f"inertia differs by {inertia_rel} relative"))
+        if not ok]
+    return out
+
+
+def factory_images(B, canvas, image, seed):
+    """A preprocessed batch (BGR minus the means): randn x 50 inside the
+    valid (h, w), zeros in the canvas's padding; and the (B, 2) sizes
+    (numpy, from `seed`)."""
+    import numpy as np
+
+    r = np.random.RandomState(seed)
+    imgs = np.zeros((B, *canvas, 3), np.float32)
+    imgs[:, :image[0], :image[1]] = r.standard_normal(
+        (B, image[0], image[1], 3)).astype(np.float32) * 50
+    return imgs, np.tile(np.asarray(image, np.int32), (B, 1))
+
+
+def agreement(torch, got, ref) -> dict:
+    """Cosine and max |d| / max |ref| of two tensors (or lists of them,
+    flattened and concatenated)."""
+    if isinstance(ref, (list, tuple)):
+        got = torch.cat([t.detach().cpu().double().ravel() for t in got])
+        ref = torch.cat([t.detach().cpu().double().ravel() for t in ref])
+    got, ref = got.detach().cpu().double(), ref.detach().cpu().double()
+    return {"cosine": cosine(got, ref),
+            "max_rel": float((got - ref).abs().max() / ref.abs().max())}
+
+
+def gate_agreement(what, a, cos_bar=GRID_COSINE, rel_bar=GRID_MAX_REL,
+                   against="card vs CPU") -> None:
+    if not (a["cosine"] >= cos_bar and a["max_rel"] <= rel_bar):
+        fail(f"{what}, {against}: cosine {a['cosine']:.7f} (bar "
+             f"{cos_bar}), max |d| {a['max_rel']:.2e} of max |ref| "
+             f"(bar {rel_bar})")
+
+
+def run_kmeans_phase(torch, args, log, device, sz, card) -> dict:
+    """k-means at sz's widths: the chunked Lloyd step timed (one warm-up,
+    the best of 2: rows/s, its fp32 bound, the peak memory); kmeans(...,
+    init="random", n_iter=2) and assign, as cli/run_kmeans calls them;
+    one Lloyd step at the check's widths on the card and the CPU from
+    the same centroids (kmeans_agreement)."""
+    import numpy as np
+
+    from xlxmert_tpu_torch.vocab import kmeans as km
+
+    cuda = str(device).startswith("cuda")
+    N, K, D, chunk = sz["rows"], sz["clusters"], sz["dim"], sz["chunk"]
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    x = torch.randn(N, D, generator=gen, device=device)
+    pick = np.random.RandomState(args.seed).choice(N, K, replace=False)
+    c0 = x[torch.from_numpy(pick).to(device)]
+    w = torch.ones(N, device=device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    new, inertia = km.lloyd_step_chunked(x, w, c0, K, chunk)   # warm-up
+    float(inertia)
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        new, inertia = km.lloyd_step_chunked(x, w, c0, K, chunk)
+        float(inertia)
+        times.append(time.perf_counter() - t0)
+    best = min(times)
+    ops = 2.0 * N * K * D
+    out = {"step_s": times, "rows_per_s": N / best,
+           "tflop_per_s": ops / best / 1e12,
+           "bound": bound(4.0 * (N * D + 2 * K * D), ops, "float32"),
+           "peak_bytes": torch.cuda.max_memory_allocated() if cuda else 0}
+    if not (bool(torch.isfinite(new).all()) and math.isfinite(
+            float(inertia))):
+        fail("k-means: the Lloyd step gave non-finite centroids or inertia")
+    log(f"  k-means Lloyd step, N={N}, K={K}, D={D}, tiles of {chunk}: "
+        f"{best * 1e3:.1f} ms, {out['rows_per_s']:,.0f} rows/s, "
+        f"{out['tflop_per_s']:.1f} TFLOP/s (2 N K D = {ops / 1e12:.2f} "
+        f"TFLOP; the fp32 bound {out['bound']['bound_ms']:.1f} ms at "
+        f"{PEAK_OPS_PER_S['float32'] / 1e12:.0f} TFLOP/s, "
+        f"{out['bound']['bound_by']}); peak "
+        f"{out['peak_bytes'] / 2**30:.2f} GiB ({card})")
+    t0 = time.perf_counter()
+    cents, final = km.kmeans(x, K, n_iter=2, seed=args.seed, init="random",
+                             device=device)
+    out["kmeans_s"] = time.perf_counter() - t0
+    ids = km.assign(x, cents, device=device)
+    if not (cents.shape == (K, D) and np.isfinite(cents).all()
+            and np.array_equal(ids, final) and 0 <= ids.min()
+            and ids.max() < K):
+        fail("k-means: kmeans(n_iter=2) and assign disagree or give "
+             "non-finite centroids")
+    log(f"  kmeans(init='random', n_iter=2) with its final assign: "
+        f"{out['kmeans_s']:.2f} s; assign gives its ids again; "
+        f"{len(np.unique(final))} clusters used")
+    del x, c0, w, new
+    if cuda:
+        torch.cuda.empty_cache()
+
+    n, k = sz["check_rows"], sz["check_clusters"]
+    x = torch.randn(n, D, generator=gen, device=device)
+    c0 = x[torch.from_numpy(np.random.RandomState(args.seed + 1).choice(
+        n, k, replace=False)).to(device)]
+    runs = {}
+    with tf32_off(torch):
+        for where in (device, "cpu"):
+            xs, cs = x.to(where), c0.to(where)
+            ids, _ = km._assign_chunk(xs, cs)
+            cent, inert = km.lloyd_step(xs, cs, k)
+            runs[where] = {"ids": ids.cpu().numpy(),
+                           "centroids": cent.cpu().numpy(),
+                           "inertia": float(inert)}
+    chk = kmeans_agreement(x.cpu().numpy(), c0.cpu().numpy(), runs[device],
+                           runs["cpu"])
+    out["card_vs_cpu"] = chk
+    if chk["failures"]:
+        fail("k-means card vs CPU: " + "; ".join(chk["failures"]))
+    log(f"  k-means card vs CPU, one Lloyd step at N={n}, K={k}: ids "
+        f"{chk['agree']:.5f} equal ({chk['differing_rows']} rows differ, "
+        f"their distances within the bar), centroids of "
+        f"{chk['clean_clusters']} clusters within "
+        f"{chk['centroid_max_err']:.2e} (bar {chk['centroid_bar']:.2e}), "
+        f"inertia within {chk['inertia_rel_diff']:.2e} relative")
+    return out
+
+
+def run_grid_phase(torch, args, log, device, sz, card, cfg) -> dict:
+    """The grid extractor at sz's widths through
+    cli/extract_features.extract_batch: bf16 and fp32, one warm-up and
+    `timed` batches each (img/s, peak memory), the output (B, G*G,
+    mlp_dim) and finite, bf16 held to fp32 (BF16_COSINE, BF16_MAX_REL);
+    on the card each run's profiled batch (busy share, the convolutions'
+    device time, their FLOPs and rate). Then card against CPU in fp32
+    with TF32 off: the whole extractor on one image on the check's
+    canvas; and ROIAlign (pool_levels) and fc6, both sides fed the
+    card's FPN of the timed batch's first image and grid boxes of
+    LEVEL_GRIDS, which must reach every level P2..P5."""
+    import numpy as np
+
+    from xlxmert_tpu_torch.cli import extract_features as ef
+    from xlxmert_tpu_torch.models import detectron as det
+
+    cuda = str(device).startswith("cuda")
+    tree = det.random_params(cfg, args.seed)
+    B, G = sz["grid_batch"], sz["grid"]
+
+    def model_of(dtype, where=device):
+        return det.load_params(det.DetectronGridExtractor(
+            cfg, G, dtype=dtype), tree).to(where).eval()
+
+    imgs, sizes = factory_images(B, sz["canvas"], sz["image"], args.seed)
+    out, feats = {"runs": {}}, {}
+    for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        model = model_of(dtype)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        ef.extract_batch(model, imgs, sizes, device)    # warm-up
+        t0 = time.perf_counter()
+        for _ in range(sz["timed"]):
+            f = ef.extract_batch(model, imgs, sizes, device)
+        sec = (time.perf_counter() - t0) / sz["timed"]
+        if not (f.shape == (B, G * G, cfg.mlp_dim) and np.isfinite(f).all()):
+            fail(f"grid extraction {name}: features of shape {f.shape}, "
+                 "or not finite")
+        feats[name] = f
+        run = {"batch_s": sec, "images_per_s": B / sec,
+               "peak_bytes": torch.cuda.max_memory_allocated() if cuda
+               else 0}
+        out["runs"][name] = run
+        log(f"  grid extraction {name}, B={B}, canvas {sz['canvas']}: "
+            f"{sec * 1e3:.1f} ms a batch, {run['images_per_s']:.1f} img/s "
+            f"(host arrays in, features out); peak "
+            f"{run['peak_bytes'] / 2**30:.2f} GiB ({card})")
+        if name == "fp32":
+            out["bf16_vs_fp32"] = agreement(
+                torch, torch.from_numpy(feats["bf16"]), torch.from_numpy(f))
+        if cuda:
+            if "conv_flop" not in out:
+                out["conv_flop"] = conv_flops(torch, lambda: ef.extract_batch(
+                    model, imgs, sizes, device))
+            flop = out["conv_flop"]
+            run["profile"] = p = profile_groups(
+                torch, lambda: ef.extract_batch(model, imgs, sizes, device),
+                {"convolutions": "conv"})
+            conv_ms = p["device_ms_by_group"]["convolutions"]
+            run["conv_tflop_per_s"] = flop / conv_ms / 1e9
+            log(f"    profiled: wall {p['wall_ms']:.1f} ms, device "
+                f"{p['device_ms']:.1f} ms, busy {p['busy_share']:.2f}; "
+                f"convolutions {conv_ms:.1f} ms ({flop / 1e12:.2f} TFLOP "
+                "counted from their shapes, "
+                f"{run['conv_tflop_per_s']:.1f} TFLOP/s), glue "
+                f"{p['device_ms_by_group']['glue']:.1f} ms: " + ", ".join(
+                    f"{k} {v:.1f}" for k, v in p["glue_top_ops_ms"].items()))
+        del model
+        if cuda:
+            torch.cuda.empty_cache()
+    a = out["bf16_vs_fp32"]
+    gate_agreement("grid features bf16", a, BF16_COSINE, BF16_MAX_REL,
+                   "against fp32")
+    log(f"  bf16 features against fp32: cosine {a['cosine']:.6f} (bar "
+        f"{BF16_COSINE}), max |d| {a['max_rel']:.2e} of max |fp32| (bar "
+        f"{BF16_MAX_REL:.2e})")
+
+    img, size1 = factory_images(1, sz["check_canvas"], sz["check_canvas"],
+                                args.seed + 1)
+    card_model = model_of(torch.float32)
+    host = model_of(torch.float32, where="cpu")
+    with tf32_off(torch):
+        got = ef.extract_batch(card_model, img, size1, device)
+        ref = ef.extract_batch(host, img, size1, "cpu")
+        out["card_vs_cpu"] = a = agreement(torch, torch.from_numpy(got),
+                                           torch.from_numpy(ref))
+        gate_agreement("grid features (fp32, TF32 off)", a)
+        log(f"  grid features card vs CPU, fp32 (TF32 off), one image on "
+            f"{sz['check_canvas']}: cosine {a['cosine']:.7f}, max |d| "
+            f"{a['max_rel']:.2e} of max |ref|")
+        out["levels_card_vs_cpu"] = pool_levels_card_vs_cpu(
+            torch, card_model, host, imgs[:1], sizes[:1], device, log)
+    return out
+
+
+def pool_levels_card_vs_cpu(torch, card_model, host, img, size, device,
+                            log) -> dict:
+    """ROIAlign and fc6 card against CPU on one image at the timed
+    canvas: the card's FPN of `img` is pooled on both devices over the
+    grid boxes of LEVEL_GRIDS (which must fall on every level P2..P5),
+    then fc6 runs on both from the card's pooled values; each gated by
+    gate_agreement."""
+    from xlxmert_tpu_torch.models import detectron as det
+
+    cfg = card_model.cfg
+    h, w = (int(v) for v in size[0])
+    rois = torch.cat([det.grid_boxes(h, w, g) for g in LEVEL_GRIDS])[None]
+    levels = sorted(set(det.fpn_level_assignment(
+        rois[0], cfg.canonical_scale, cfg.canonical_level).tolist()))
+    if levels != [0, 1, 2, 3]:
+        fail(f"the level check's rois over a {h}x{w} image fall on P"
+             f"{[l + 2 for l in levels]}, not on every level P2..P5")
+    with torch.inference_mode():
+        fpn = card_model.backbone(torch.from_numpy(img).to(device))[:4]
+        pool = (cfg.pooler_resolution, cfg.sampling_ratio,
+                cfg.canonical_scale, cfg.canonical_level)
+        pa = det.pool_levels(fpn, rois.to(device), *pool)
+        pr = det.pool_levels([f.cpu() for f in fpn], rois, *pool)
+        fe = "feature_extractor"
+        fa = card_model.roi_heads["box"][fe](pa)["fc6"]
+        fr = host.roi_heads["box"][fe](pa.cpu())["fc6"]
+    out = {"levels": [l + 2 for l in levels], "rois": int(rois.shape[1]),
+           "pooled": agreement(torch, pa, pr),
+           "fc6": agreement(torch, fa, fr)}
+    gate_agreement("ROIAlign over P2..P5 (fp32, the card's FPN)",
+                   out["pooled"])
+    gate_agreement("fc6 over P2..P5 (fp32, the card's pooled values)",
+                   out["fc6"])
+    log(f"  ROIAlign and fc6 card vs CPU, one {h}x{w} image, "
+        f"{out['rois']} grid boxes on P{out['levels']} from the card's "
+        f"FPN: pooled cosine {out['pooled']['cosine']:.7f}, max |d| "
+        f"{out['pooled']['max_rel']:.2e}; fc6 cosine "
+        f"{out['fc6']['cosine']:.7f}, max |d| {out['fc6']['max_rel']:.2e}")
+    return out
+
+
+def _proposal_ids_agree(card, host) -> dict:
+    """The proposal stage's ids (B, P) on two devices from the same RPN
+    outputs: equal at every valid slot, except where the card's id is
+    the CPU's at a neighbouring slot whose score lies within one fp32
+    ulp (a near-tie's swap). Returns the counts."""
+    import numpy as np
+
+    ia, ib = card["ids"].cpu().numpy(), host["ids"].cpu().numpy()
+    sb = host["scores"].float().cpu().numpy()
+    va = np.isfinite(card["scores"].float().cpu().numpy())
+    vb = np.isfinite(sb)
+    bad, ties = [], 0
+    for b, i in zip(*np.nonzero((ia != ib) & vb)):
+        near = [j for j in (i - 1, i + 1) if 0 <= j < sb.shape[1]
+                and ia[b, i] == ib[b, j]
+                and abs(sb[b, i] - sb[b, j]) <= np.spacing(abs(sb[b, i]))]
+        if near:
+            ties += 1
+        else:
+            bad.append((int(b), int(i)))
+    return {"valid_equal": bool((va == vb).all()), "near_tie_swaps": ties,
+            "mismatches": bad, "valid": int(vb.sum())}
+
+
+def run_bbox_phase(torch, args, log, device, sz, card, cfg) -> dict:
+    """The bbox path through cli/extract_bbox_features.extract_batch at
+    sz's widths, fp32: one warm-up and `timed` batches (img/s, peak
+    memory), one batch split into the backbone with the RPN head, the
+    proposal stage with its NMS, the box head and select_top_features;
+    then, at one image on the check's canvas with TF32 off, the card
+    against the CPU unit by unit from the card's own inputs: the
+    backbone and RPN outputs, the proposal stage, the selection."""
+    import numpy as np
+
+    from xlxmert_tpu_torch.cli import extract_bbox_features as eb
+    from xlxmert_tpu_torch.models import detectron as det
+    from xlxmert_tpu_torch.ops.box_selection import select_top_features
+
+    cuda = str(device).startswith("cuda")
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    tree = det.random_params(cfg, args.seed, n_classes=sz["classes"])
+    P, N = sz["proposals"], sz["num_features"]
+
+    def model_of(where):
+        return det.load_params(det.DetectronDetector(
+            cfg, n_classes=sz["classes"], pre_nms_top_n=P, post_nms_top_n=P,
+            fpn_post_nms_top_n=P), tree).to(where).eval()
+
+    B = sz["bbox_batch"]
+    imgs, sizes = factory_images(B, sz["canvas"], sz["image"], args.seed + 2)
+    scales = np.full(B, 1.5, np.float32)
+    model = model_of(device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    eb.extract_batch(model, imgs, sizes, scales, device, N)   # warm-up
+    t0 = time.perf_counter()
+    for _ in range(sz["timed"]):
+        res = eb.extract_batch(model, imgs, sizes, scales, device, N)
+    sec = (time.perf_counter() - t0) / sz["timed"]
+    out = {"batch_s": sec, "images_per_s": B / sec,
+           "peak_bytes": torch.cuda.max_memory_allocated() if cuda else 0}
+    if not (res["features"].shape == (B, N, cfg.mlp_dim)
+            and np.isfinite(res["features"]).all()
+            and np.isfinite(res["boxes"]).all()
+            and 0 <= res["obj_id"].min()
+            and res["obj_id"].max() < sz["classes"] - 1):
+        fail("bbox extraction: features, boxes or obj_id out of range")
+    parts = {}
+    with torch.inference_mode():
+        x = torch.as_tensor(imgs).to(device)
+        s = torch.as_tensor(sizes).to(device)
+        sync()
+        t0 = time.perf_counter()
+        fpn, lg, dl = model.rpn_outputs(x)
+        sync()
+        parts["backbone_rpn_head"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        prop = model.propose(lg, dl, s)
+        sync()
+        parts["proposals_nms"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cls, feats = model.box_head(fpn, prop["boxes"])
+        sync()
+        parts["box_head"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        select_top_features(prop["boxes"], cls, feats["fc6"],
+                            torch.as_tensor(scales).to(device),
+                            valid=torch.isfinite(prop["scores"]),
+                            num_features=N)
+        sync()
+        parts["select_top_features"] = time.perf_counter() - t0
+    out["parts_s"] = parts
+    log(f"  bbox extraction fp32, B={B}, canvas {sz['canvas']}, {P} "
+        f"proposals, {sz['classes']} classes: {sec * 1e3:.1f} ms a batch, "
+        f"{out['images_per_s']:.2f} img/s; peak "
+        f"{out['peak_bytes'] / 2**30:.2f} GiB ({card})")
+    log("    one batch's parts (host clock, synchronized): " + ", ".join(
+        f"{k} {v * 1e3:.1f} ms" for k, v in parts.items()))
+    del fpn, lg, dl, prop, cls, feats, x
+    if cuda:
+        torch.cuda.empty_cache()
+
+    img, size1 = factory_images(1, sz["check_canvas"], sz["check_canvas"],
+                                args.seed + 3)
+    host = model_of("cpu")
+    scale1 = torch.ones(1)
+    with tf32_off(torch), torch.inference_mode():
+        xa = torch.from_numpy(img)
+        sa = torch.from_numpy(size1)
+        fa, la, da = model.rpn_outputs(xa.to(device))
+        fr, lr, dr = host.rpn_outputs(xa)
+        units = {"fpn": agreement(torch, fa, fr),
+                 "objectness": agreement(torch, la, lr),
+                 "deltas": agreement(torch, da, dr)}
+        for name, a in units.items():
+            gate_agreement(f"bbox {name}", a)
+        pa = model.propose(la, da, sa.to(device))
+        pr = host.propose([t.cpu() for t in la], [t.cpu() for t in da],
+                          sa)
+        units["proposals"] = pc = _proposal_ids_agree(pa, pr)
+        if pc["mismatches"] or not pc["valid_equal"]:
+            fail(f"bbox proposal stage, card vs CPU from the card's RPN "
+                 f"outputs: ids differ at {pc['mismatches'][:5]} "
+                 f"(valid slots equal: {pc['valid_equal']})")
+        cls, feats = model.box_head(fa, pa["boxes"])
+        cr, fr_ = host.box_head([t.cpu() for t in fa], pa["boxes"].cpu())
+        for name, got, ref in (("cls", cls, cr),
+                               ("fc6", feats["fc6"], fr_["fc6"]),
+                               ("fc7", feats["fc7"], fr_["fc7"])):
+            units[name] = agreement(torch, got, ref)
+            gate_agreement(f"bbox box head {name} (the card's FPN and "
+                           "proposals)", units[name])
+        units["proposal_levels"] = sorted(
+            l + 2 for l in set(det.fpn_level_assignment(
+                pa["boxes"][0].cpu(), cfg.canonical_scale,
+                cfg.canonical_level).tolist()))
+        inputs = (pa["boxes"], cls, feats["fc6"], scale1.to(device),
+                  torch.isfinite(pa["scores"]))
+        sel = {}
+        for where in (device, "cpu"):
+            p_, c_, f_, s_, v_ = (t.to(where) for t in inputs)
+            sel[where] = select_top_features(p_, c_, f_, s_, valid=v_,
+                                             num_features=N)
+    same_keep = torch.equal(sel[device]["keep_boxes"].cpu(),
+                            sel["cpu"]["keep_boxes"])
+    same_obj = torch.equal(sel[device]["obj_id"].cpu(), sel["cpu"]["obj_id"])
+    units["select"] = {"keep_boxes_equal": same_keep,
+                       "obj_id_equal": same_obj}
+    if not (same_keep and same_obj):
+        fail("bbox select_top_features, card vs CPU from the card's "
+             f"detector outputs: kept indices equal {same_keep}, obj_id "
+             f"equal {same_obj}")
+    out["card_vs_cpu"] = units
+    log(f"  bbox card vs CPU, fp32 (TF32 off), one image on "
+        f"{sz['check_canvas']}, unit by unit from the card's inputs: "
+        + ", ".join(f"{k} cosine {units[k]['cosine']:.7f}"
+                    for k in ("fpn", "objectness", "deltas"))
+        + f"; proposals: {pc['valid']} valid, ids equal but "
+        f"{pc['near_tie_swaps']} near-tie swaps; box head over P"
+        f"{units['proposal_levels']}: "
+        + ", ".join(f"{k} cosine {units[k]['cosine']:.7f}"
+                    for k in ("cls", "fc6", "fc7"))
+        + "; select_top_features: kept indices and obj_id equal")
+    return out
+
+
+def run_factory_path(torch, args, kernels, log, device="cuda", sizes=None,
+                     card="") -> dict:
+    """Phase (l): the offline feature factory at measure_factory's widths
+    (FACTORY_SIZES; `sizes` overrides them, the CPU test runs a small
+    one): k-means (run_kmeans_phase), the grid extractor
+    (run_grid_phase), the bbox path (run_bbox_phase). No kernel of the
+    port lies on this path: every launch count must stay 0."""
+    from xlxmert_tpu_torch.models.detectron import DetectronConfig
+
+    sz = dict(FACTORY_SIZES, **(sizes or {}))
+    cfg = DetectronConfig(**(sz["config"] or {}))
+    for k in kernels:
+        k.launches = 0
+    out = {"sizes": {k: v for k, v in sz.items() if k != "config"}}
+    t0 = time.time()
+    out["kmeans"] = run_kmeans_phase(torch, args, log, device, sz, card)
+    out["kmeans"]["wall_s"] = time.time() - t0
+    t0 = time.time()
+    out["grid"] = run_grid_phase(torch, args, log, device, sz, card, cfg)
+    out["grid"]["wall_s"] = time.time() - t0
+    t0 = time.time()
+    out["bbox"] = run_bbox_phase(torch, args, log, device, sz, card, cfg)
+    out["bbox"]["wall_s"] = time.time() - t0
+    out["launches"] = {k.name: k.launches for k in kernels}
+    check_launches("factory", out["launches"], 1)
+    log("  phase (l) parts: " + ", ".join(
+        f"{k} {out[k]['wall_s']:.1f}s" for k in ("kmeans", "grid", "bbox"))
+        + "; launches of the port's kernels: none")
     return out
 
 
@@ -3358,9 +3966,20 @@ def main(argv=None) -> int:
     gan = run_gan_path(torch, args, kernels, log, card=card)
     gan["wall_s"] = time.time() - t0
     log(f"  phase (k) took {gan['wall_s']:.1f}s")
+    torch.cuda.empty_cache()
+    fz = FACTORY_SIZES
+    log(f"(l) the offline feature factory: k-means at N={fz['rows']}, "
+        f"K={fz['clusters']}, D={fz['dim']}; the X-152-32x8d-FPN grid "
+        f"extractor at B={fz['grid_batch']}, {fz['canvas']}; the bbox path "
+        f"at B={fz['bbox_batch']}, {fz['proposals']} proposals, "
+        f"{fz['classes']} classes; random weights ({card})")
+    t0 = time.time()
+    factory = run_factory_path(torch, args, kernels, log, card=card)
+    factory["wall_s"] = time.time() - t0
+    log(f"  phase (l) took {factory['wall_s']:.1f}s")
     paths = {"int8": path, **bf16_paths, "int8+fused_block": fused_path,
              "finetune": ft, "layout": layout, "pretrain": pt,
-             "sample": sample, "gan": gan}
+             "sample": sample, "gan": gan, "factory": factory}
 
     # (d) the kernels line and the device line: times per serving forward
     # drawn from VQA_LENGTH_MIX (mha_blhd_train: per VQA training step);

@@ -124,6 +124,32 @@ def test_fused_mha_gradient_check_runs_on_the_cpu():
     assert sum("the backward raises" in m for m in log) == 3
     assert [chip_smoke.bf16_step(x) for x in (1.0, 3.0, 0.015, 0.0)] == [
         2.0 ** -7, 2.0 ** -6, 2.0 ** -14, 0.0]
+    # the fp32 case's bias bar is per element, 2^-7 |r| + t: it catches a
+    # small element moved by 5 %, which the absolute bar before it (one
+    # bf16 step of the largest |r|) let pass
+    for r in rows:
+        if r["dtype"] == "float32":
+            assert r["bias_bar"]["excess"] <= 0
+    H, D = cfg.num_attention_heads, cfg.hidden_size // cfg.num_attention_heads
+    g = torch.Generator().manual_seed(1)
+    q, k, v = (torch.randn(2, H, L, D, generator=g)
+               for L in (chip_smoke.FT_TEXT, 64, 64))
+    bias = (0.5 * torch.randn(2, 64, generator=g)).to(torch.bfloat16)
+    grad = torch.randn(2, H, chip_smoke.FT_TEXT, D, generator=g)
+    leaf = bias.clone().requires_grad_()
+    attention.einsum_mha_reference(q, k, v, leaf, False).backward(grad)
+    ref = leaf.grad.float()
+    t = chip_smoke.bias_grad_sum_bound(torch, q, k, v, bias, grad)
+    assert chip_smoke.bias_grad_excess(ref, ref, t) <= 0
+    old_bar = chip_smoke.bf16_step(ref.abs().max().item())
+    small = (0.05 * ref.abs() <= old_bar) & (
+        0.04 * ref.abs() > chip_smoke.BIAS_GRAD_REL * ref.abs() + t)
+    i = int(torch.nonzero(small.ravel())[0])
+    moved = ref.clone().ravel()
+    moved[i] = (moved[i] * 1.05).to(torch.bfloat16).float()
+    moved = moved.reshape(ref.shape)
+    assert (moved - ref).abs().max() <= old_bar
+    assert chip_smoke.bias_grad_excess(moved, ref, t) > 0
 
 
 def test_int8_phase_times_the_card_with_its_queue_kept_full(monkeypatch):

@@ -887,9 +887,10 @@ def test_nar_decode_steps_match_the_cpu(cuda, int8):
 def test_fused_mha_grad_check_does_not_depend_on_the_phase_order(cuda):
     """chip_smoke's C1 check after the sampler cases have drawn from the
     same generator first (the order that failed when the fp32 bias
-    gradient was held to 1e-4): the bf16 bias's gradient is held to one
-    bf16 step of its largest value, whatever the generator's state. The
-    kernel-phase timers are replaced: only the draws matter here."""
+    gradient was held to 1e-4): the bf16 bias's gradient is held element
+    by element to 2^-7 |r| plus its sum's fp32 accumulation bound,
+    whatever the generator's state. The kernel-phase timers are
+    replaced: only the draws matter here."""
     cfg = LxmertConfig()
     sz = chip_smoke.SAMPLE_SIZES
     rng = torch.Generator(device="cuda").manual_seed(0)
@@ -913,7 +914,7 @@ def test_fused_mha_grad_check_does_not_depend_on_the_phase_order(cuda):
                                            lambda m: None)
     fp32 = [r for r in rows if r["dtype"] == "float32"]
     assert len(fp32) == 2
-    assert all(r["max_abs_err"]["bias"] <= r["bias_bar"] for r in fp32)
+    assert all(r["bias_bar"]["excess"] <= 0 for r in fp32)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -945,3 +946,101 @@ def test_gan_steps_match_the_cpu(cuda, dtype):
         chip_smoke.GAN_STEP_BARS, chip_smoke.GAN_SN_TOL = bars
     assert set(out["grad_cosine"]) == {"d", "g"}
     assert "d_cls_loss" in out["loss_rel_diff"]
+
+
+@pytest.fixture
+def no_tf32():
+    with chip_smoke.tf32_off(torch):
+        yield
+
+
+def test_kmeans_step_matches_the_cpu(cuda, no_tf32):
+    """One assignment and Lloyd step (N=4,096, K=256, D=256) on the card
+    and on the CPU from the same centroids: chip_smoke (l)'s tie-aware
+    bars (kmeans_agreement); the chunked step equals the one-shot."""
+    from xlxmert_tpu_torch.vocab import kmeans
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(4096, 256, generator=g)
+    c0 = x[torch.randperm(4096, generator=g)[:256]]
+    runs = {}
+    for where in ("cuda", "cpu"):
+        ids, _ = kmeans._assign_chunk(x.to(where), c0.to(where))
+        cent, inert = kmeans.lloyd_step(x.to(where), c0.to(where), 256)
+        runs[where] = {"ids": ids.cpu().numpy(),
+                       "centroids": cent.cpu().numpy(),
+                       "inertia": float(inert)}
+    chk = chip_smoke.kmeans_agreement(x.numpy(), c0.numpy(), runs["cuda"],
+                                      runs["cpu"])
+    assert chk["failures"] == [], chk
+    cent, inert = kmeans.lloyd_step_chunked(
+        x.cuda(), torch.ones(4096, device="cuda"), c0.cuda(), 256, 1024)
+    np.testing.assert_allclose(cent.cpu().numpy(), runs["cuda"]["centroids"],
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("grid,level", [(8, 2), (4, 3), (2, 4), (1, 5)])
+def test_tiny_grid_extractor_matches_the_cpu(cuda, no_tf32, grid, level):
+    """The tiny Detectron grid extractor, fp32 with TF32 off, on the card
+    and the CPU from the same tree: cosine >= 0.99999, max |d| <= 1e-4
+    max |ref|; its grid boxes over 470x630 images pooled from P2..P5, one
+    level for each grid size."""
+    from xlxmert_tpu_torch.cli.extract_features import extract_batch
+    from xlxmert_tpu_torch.models import detectron as det
+
+    cfg = det.tiny_detectron_config()
+    tree = det.random_params(cfg, 0)
+    imgs, sizes = chip_smoke.factory_images(2, (480, 640), (470, 630), 0)
+    lv = det.fpn_level_assignment(det.grid_boxes(470, 630, grid))
+    assert set((lv + 2).tolist()) == {level}
+    out = {}
+    for where in ("cuda", "cpu"):
+        m = det.load_params(det.DetectronGridExtractor(cfg, grid), tree)
+        out[where] = torch.from_numpy(extract_batch(m.to(where).eval(),
+                                                    imgs, sizes, where))
+    a = chip_smoke.agreement(torch, out["cuda"], out["cpu"])
+    assert a["cosine"] >= 0.99999 and a["max_rel"] <= 1e-4, a
+
+
+def test_tiny_detector_matches_the_cpu(cuda, no_tf32):
+    """The tiny detector on the card against the CPU, unit by unit from
+    the card's own inputs, as chip_smoke (l): the RPN outputs by cosine,
+    the proposal stage's ids (near-tie swaps aside), the box head's
+    class scores, fc6 and fc7 by cosine, the selection's kept indices
+    and obj_id exactly."""
+    from xlxmert_tpu_torch.models import detectron as det
+    from xlxmert_tpu_torch.ops.box_selection import select_top_features
+
+    cfg = det.tiny_detectron_config()
+    tree = det.random_params(cfg, 0, n_classes=31)
+    models = {w: det.load_params(det.DetectronDetector(
+        cfg, n_classes=31, pre_nms_top_n=200, post_nms_top_n=200,
+        fpn_post_nms_top_n=150), tree).to(w).eval() for w in ("cuda", "cpu")}
+    imgs, sizes = chip_smoke.factory_images(2, (128, 160), (120, 150), 1)
+    x, s = torch.from_numpy(imgs), torch.from_numpy(sizes)
+    with torch.inference_mode():
+        fa, la, da = models["cuda"].rpn_outputs(x.cuda())
+        fr, lr, dr = models["cpu"].rpn_outputs(x)
+        for got, ref in ((fa, fr), (la, lr), (da, dr)):
+            a = chip_smoke.agreement(torch, got, ref)
+            assert a["cosine"] >= 0.99999 and a["max_rel"] <= 1e-4, a
+        pa = models["cuda"].propose(la, da, s.cuda())
+        pr = models["cpu"].propose([t.cpu() for t in la],
+                                   [t.cpu() for t in da], s)
+        chk = chip_smoke._proposal_ids_agree(pa, pr)
+        assert chk["mismatches"] == [] and chk["valid_equal"], chk
+        cls, feats = models["cuda"].box_head(fa, pa["boxes"])
+        cr, fr_ = models["cpu"].box_head([t.cpu() for t in fa],
+                                         pa["boxes"].cpu())
+        for got, ref in ((cls, cr), (feats["fc6"], fr_["fc6"]),
+                         (feats["fc7"], fr_["fc7"])):
+            a = chip_smoke.agreement(torch, got, ref)
+            assert a["cosine"] >= 0.99999 and a["max_rel"] <= 1e-4, a
+        inputs = (pa["boxes"], cls, feats["fc6"], torch.ones(2).cuda(),
+                  torch.isfinite(pa["scores"]))
+        sel = {w: select_top_features(*(t.to(w) for t in inputs[:4]),
+                                      valid=inputs[4].to(w),
+                                      num_features=10)
+               for w in ("cuda", "cpu")}
+    for k in ("keep_boxes", "obj_id", "num_boxes"):
+        assert torch.equal(sel["cuda"][k].cpu(), sel["cpu"][k]), k

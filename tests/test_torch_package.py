@@ -151,6 +151,31 @@ def test_gan_training_entry_points_need_the_card_unless_asked_for_the_cpu(
     assert state.generator.device.type == "cpu"
 
 
+def test_factory_entry_points_need_the_card_unless_asked_for_the_cpu(
+        no_cuda, tmp_path):
+    from xlxmert_tpu_torch.cli import extract_bbox_features, extract_features
+    from xlxmert_tpu_torch.cli import run_kmeans
+    from xlxmert_tpu_torch.vocab import kmeans
+
+    x = np.random.RandomState(0).randn(40, 4).astype(np.float32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        kmeans.kmeans(x, 3, n_iter=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        kmeans.assign(x, x[:3])
+    centroids, ids = kmeans.kmeans(x, 3, n_iter=1, device="cpu")
+    assert centroids.shape == (3, 4) and ids.shape == (40,)
+    for main, argv in (
+            (run_kmeans.main, ["--src_h5", "x.h5"]),
+            (extract_features.main, ["--images_dir", str(tmp_path),
+                                     "--out", "x.h5"]),
+            (extract_features.main, ["--arch", "maskrcnn", "--images_dir",
+                                     str(tmp_path), "--out", "x.h5"]),
+            (extract_bbox_features.main, ["--images_dir", str(tmp_path),
+                                          "--out", "x.h5"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(argv)
+
+
 def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
     from xlxmert_tpu_torch.ops import attention, fused_block, int8_matmul
     from xlxmert_tpu_torch.ops.quant import (
