@@ -96,9 +96,15 @@ Phases, each of which fails the script on error:
       attention route (34 and 0 mha_blhd_train launches a step), the
       evaluation, the epoch checkpoint read back; per task the step ms
       after the first, examples/s, peak memory, the step's parts and the
-      card's busy time; each task's dropout-free step on the card against
-      the CPU with injected masks at B=8, held to STEP_BARS, with the same
-      parameters left without a gradient;
+      card's busy time; the exact resume: FULL_K steps, one full-state
+      save (train_state_to_tree + AsyncCheckpointer.save_full: the FULL's
+      bytes, snapshot and write times), a fresh engine's restore equal to
+      the saved state leaf for leaf, and its next step's loss within the
+      spread of two uninterrupted runs; pretrain(profile=2) on the
+      pallas_blhd route writes a trace that names the steps and holds
+      every mha_blhd_train launch; each task's dropout-free step on the
+      card against the CPU with injected masks at B=8, held to
+      STEP_BARS, with the same parameters left without a gradient;
   (j) text-to-image at bench.py Config #2's widths (LxmertConfig(),
       10,000 random centroids randn x 0.1, B=64, text 20, an 8x8 grid,
       the SPADE generator at base 32, target 256, codebook 256, bf16),
@@ -158,6 +164,18 @@ Phases, each of which fails the script on error:
       outputs by cosine, the proposal stage's ids but for near-tie
       swaps, the box head's class scores, fc6 and fc7 by cosine, the
       selection's kept indices and obj_id exactly);
+  (m) FID at cli/eval_fid's widths, random weights from --seed, no port
+      kernel (cuDNN convolutions, plain PyTorch, host numpy): InceptionV3
+      (pt_inception's architecture, 1,008 classes, drawn BN statistics)
+      and the ResNet-50 extractor in fp32 (cuDNN's default TF32) at B=64
+      over 2,048 'real' and 2,048 'fake' host images at 256 px through
+      eval_fid.fid_of_batches (FID, img/s of each extractor, peak
+      memory, a profiled batch: busy share, convolutions with their
+      counted FLOPs and rate, glue; InceptionV3's forward channels-last
+      against NCHW); the host resize of 64 images at 480x640 and the
+      Fréchet distance at D=2,048 timed apart; pool3 card vs CPU on 8
+      images (TF32 off and on, POOL3_BARS) and the FID of 256 images'
+      card features (TF32 off) against their CPU features (FID_REL_BAR);
   (d) one JSON line listing the kernels (times per serving forward of
       the length mix; mha_blhd_train's per training step, mha_hbatch's
       per layout forward), then the device line last.
@@ -220,6 +238,8 @@ PER_FORWARD = {
     "gan": {},
     # (l): the offline factory (cuDNN, cuBLAS, plain PyTorch): none
     "factory": {},
+    # (m): FID (cuDNN convolutions, plain PyTorch, host numpy): none
+    "fid": {},
 }
 # serve(bf16=True, attention=..., fused_ffn=...) of each bf16 path, and
 # the attention route its CPU copy takes (None: no card-vs-CPU check)
@@ -2030,10 +2050,10 @@ def pretrain_config(setup, out_dir, seed, **kw):
                        vis_mask_predict=True, **kw)
 
 
-def pretrain_data(setup, tcfg, seed):
+def pretrain_data(setup, tcfg, seed, steps=PT_STEPS):
     """In-memory PretrainDatasets over Setup's questions as captions, each
     on one of IMAGES images with random cluster ids on the 8x8 grid:
-    PT_STEPS batches to train on and one to evaluate."""
+    `steps` batches to train on and one to evaluate."""
     import numpy as np
 
     from xlxmert_tpu_torch.data.datasets import PretrainDataset
@@ -2044,7 +2064,7 @@ def pretrain_data(setup, tcfg, seed):
                            for i in range(IMAGES)})
     corpus = [{"img_id": q["img_id"], "img_source": "mscoco_train",
                "sentf": {"mscoco": [q["sent"]]}} for q in setup.questions]
-    n_train = PT_STEPS * PT_BATCH
+    n_train = steps * PT_BATCH
     kw = dict(max_text_length=tcfg.max_text_length,
               grid_size=tcfg.grid_size,
               vis_mask_sources={"mscoco", "vg"}
@@ -2291,6 +2311,169 @@ def pretrain_step_card_vs_cpu(torch, setup, batch, params, centroids, args,
     return out
 
 
+FULL_K = 3           # steps before the full-state save (one of each task)
+PROFILE_STEPS = 2    # --profile N of the traced pre-training run
+
+
+def full_state_check(torch, setup, kernels, data, params, centroids, args,
+                     device, log) -> dict:
+    """The exact resume on the card: FULL_K steps of the pallas_blhd
+    route, train_state_to_tree + AsyncCheckpointer.save_full (snapshot
+    and write times, the files' bytes), the next step's loss (run 1);
+    the same FULL_K + 1 steps again from the start (run 2: their spread);
+    a fresh engine restores the FULL, every leaf of its state must equal
+    the saved leaf bit for bit, and its next step's loss must lie within
+    the two runs' spread of run 1's."""
+    import numpy as np
+
+    from xlxmert_tpu_torch.core.checkpoint import (
+        AsyncCheckpointer, load_pytree, restore_train_state,
+        train_state_to_tree,
+    )
+    from xlxmert_tpu_torch.tasks.pretrain import PretrainEngine
+
+    batches = [b for _, b in zip(range(FULL_K + 1), data[0].batches(
+        PT_BATCH, shuffle=True, seed=args.seed))]
+    before = {k.name: k.launches for k in kernels}
+    out = {}
+
+    def fresh():
+        tcfg = pretrain_config(setup, "unused", args.seed)
+        eng = PretrainEngine(tcfg, setup.cfg, total_steps=PT_STEPS,
+                             train_attention="pallas_blhd", device=device)
+        return eng, eng.create_state(args.seed, params)
+
+    def step(eng, state, i):
+        m = eng.train_step(state, batches[i], eng.task_for_step(i),
+                           centroids)
+        return float(m["total_loss"])
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        full = os.path.join(tmp, "Epoch01_FULL.msgpack")
+        lxrt = os.path.join(tmp, "Epoch01_LXRT.msgpack")
+        eng, state = fresh()
+        for i in range(FULL_K):
+            step(eng, state, i)
+        writer = AsyncCheckpointer()
+        sync()
+        t0 = time.perf_counter()
+        writer.save_full(train_state_to_tree(state, PT_STEPS), full, lxrt)
+        out["snapshot_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        writer.wait()
+        out["write_s"] = time.perf_counter() - t0
+        out["full_bytes"] = os.path.getsize(full)
+        out["lxrt_bytes"] = os.path.getsize(lxrt)
+        run1 = step(eng, state, FULL_K)
+        del eng, state
+        eng, state = fresh()
+        run2 = [step(eng, state, i) for i in range(FULL_K + 1)][-1]
+        del eng, state
+        eng, state = fresh()
+        sync()
+        t0 = time.perf_counter()
+        total = restore_train_state(state, full)
+        sync()
+        out["restore_s"] = time.perf_counter() - t0
+        tree = load_pytree(full)
+    back = train_state_to_tree(state, PT_STEPS)
+    flat_back, flat_saved = _flat(back), _flat(tree)
+    if total != PT_STEPS or flat_back.keys() != flat_saved.keys():
+        fail(f"full state: restored horizon {total}, or the trees differ in "
+             "their leaves")
+    differ = [k for k in flat_saved
+              if flat_back[k].dtype != flat_saved[k].dtype
+              or not np.array_equal(flat_back[k], flat_saved[k])]
+    if differ:
+        fail(f"full state: {len(differ)} restored leaves differ from the "
+             f"saved ones, e.g. {differ[:3]}")
+    resumed = step(eng, state, FULL_K)
+    del eng, state, tree, back
+    spread, moved = abs(run2 - run1), abs(resumed - run1)
+    out.update(leaves=len(flat_saved), losses={
+        "run1": run1, "run2": run2, "resumed": resumed}, spread=spread,
+        resumed_diff=moved, resumed_bit_equal=resumed == run1,
+        launches={k.name: k.launches - before[k.name] for k in kernels})
+    gib = {k: out[f"{k}_bytes"] / 2**30 for k in ("full", "lxrt")}
+    log(f"  full state after {FULL_K} steps: FULL {gib['full']:.2f} GiB + "
+        f"LXRT {gib['lxrt']:.2f} GiB, snapshot "
+        f"{out['snapshot_s']:.2f}s (train_state_to_tree + save_full's host "
+        f"copy), write {out['write_s']:.2f}s (both files, writer thread), "
+        f"restore {out['restore_s']:.2f}s (read + load on the card); "
+        f"{len(flat_saved)} leaves restored bit for bit; step {FULL_K + 1}'s "
+        f"loss: run 1 {run1!r}, run 2 {run2!r} (spread {spread:.3e}), "
+        f"resumed {resumed!r} (|d| {moved:.3e}"
+        f"{', bit-equal to run 1' if resumed == run1 else ''})")
+    if not (math.isfinite(resumed) and moved <= spread):
+        fail(f"full state: the resumed step's loss {resumed} is {moved} from "
+             f"run 1's {run1}, outside the two runs' spread {spread}")
+    # runs 1 and 2: FULL_K + 1 steps each; the resumed run: one
+    check_launches("pretrain pallas_blhd", out["launches"], 3 * FULL_K)
+    return out
+
+
+def profile_check(torch, setup, kernels, params, centroids, args, device,
+                  log) -> dict:
+    """cli/pretrain.pretrain(profile=PROFILE_STEPS) with --train_attention
+    pallas_blhd over an epoch of PROFILE_STEPS batches (all traced): the
+    trace under <output>/profile must name each step, and on the card
+    hold as many mha_blhd_train kernels as the wrapper counted."""
+    from xlxmert_tpu_torch.cli.pretrain import pretrain
+    from xlxmert_tpu_torch.core.metrics import RunLogger
+    from xlxmert_tpu_torch.tasks.pretrain import PretrainEngine
+
+    before = {k.name: k.launches for k in kernels}
+    with tempfile.TemporaryDirectory() as out_dir:
+        tcfg = pretrain_config(setup, out_dir, args.seed)
+        data = pretrain_data(setup, tcfg, args.seed, steps=PROFILE_STEPS)
+        eng = PretrainEngine(tcfg, setup.cfg, total_steps=PROFILE_STEPS,
+                             train_attention="pallas_blhd", device=device)
+        state = eng.create_state(args.seed, params)
+        logger = RunLogger(out_dir, tcfg, use_tensorboard=False)
+        t0 = time.perf_counter()
+        pretrain(eng, state, data[0], data[1], tcfg, centroids, logger,
+                 profile=PROFILE_STEPS)
+        wall = time.perf_counter() - t0
+        logger.close()
+        del eng, state
+        files = [os.path.join(out_dir, "profile", n) for n in
+                 sorted(os.listdir(os.path.join(out_dir, "profile")))]
+        if len(files) != 1:
+            fail(f"pretrain --profile: {len(files)} trace files")
+        nbytes = os.path.getsize(files[0])
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+    launches = {k.name: k.launches - before[k.name] for k in kernels}
+    check_launches("pretrain pallas_blhd", launches, PROFILE_STEPS)
+    names = [e.get("name", "") for e in events]
+    steps = sorted({n for n in names if n.startswith("train_step ")})
+    kernels_seen = sum(1 for e in events if e.get("cat") == "kernel" and (
+        "attend_mma_kernel" in e.get("name", "")
+        or "mha_blhd_masked_kernel" in e.get("name", "")))
+    want_steps = sorted(f"train_step {PT_TASKS[i % 3]}"
+                        for i in range(PROFILE_STEPS))
+    counted = launches.get("mha_blhd_train", 0)
+    out = {"trace_bytes": nbytes, "events": len(events), "steps": steps,
+           "mha_blhd_train_in_trace": kernels_seen,
+           "mha_blhd_train_counted": counted, "wall_s": wall,
+           "launches": launches}
+    log(f"  --profile {PROFILE_STEPS}: a trace of {len(events)} events "
+        f"({nbytes / 2**20:.1f} MiB) naming {', '.join(steps)}; "
+        f"mha_blhd_train kernels in it {kernels_seen}, launches counted "
+        f"{counted}; the run {wall:.1f}s")
+    if steps != want_steps:
+        fail(f"pretrain --profile: the trace names {steps}, not "
+             f"{want_steps}")
+    if device == "cuda" and kernels_seen != counted:
+        fail(f"pretrain --profile: {kernels_seen} mha_blhd_train kernels in "
+             f"the trace, {counted} launches counted")
+    return out
+
+
 def run_pretrain_path(torch, args, kernels, log, cfg=None, device="cuda",
                       setup=None):
     """Phase (i): pre-training through cli/pretrain.pretrain() on
@@ -2331,6 +2514,13 @@ def run_pretrain_path(torch, args, kernels, log, cfg=None, device="cuda",
         del eng, state
         if device == "cuda":
             torch.cuda.empty_cache()
+    out["full_state"] = full_state_check(torch, setup, kernels, data, params,
+                                         centroids, args, device, log)
+    out["profile"] = profile_check(torch, setup, kernels, params, centroids,
+                                   args, device, log)
+    for part in ("full_state", "profile"):
+        for k, n in out[part]["launches"].items():
+            launches[k] += n
     check = host_masked(next(iter(data[0].batches(PT_CHECK))), args.seed,
                         setup.cfg.vocab_size)
     out["card_vs_cpu"] = pretrain_step_card_vs_cpu(
@@ -3089,7 +3279,8 @@ def profile_groups(torch, fn, groups) -> dict:
             total += e.time_range.elapsed_us() / 1e3
             continue
         own = getattr(e, "self_device_time_total", 0) / 1e3
-        if not own:
+        # the profiler's own record around a copy it also gives aten::copy_
+        if not own or e.name == "Activity Buffer Request":
             continue
         names, p = [e.name], e.cpu_parent
         while p is not None:
@@ -3806,6 +3997,255 @@ def run_factory_path(torch, args, kernels, log, device="cuda", sizes=None,
     return out
 
 
+# ---------------------------------------------------------------------------
+# (m) FID
+# ---------------------------------------------------------------------------
+
+# eval_fid's default batch; cli/sample_images' 256-px images; COCO's
+# common native size for the host resize
+FID_SIZES = dict(batch=64, images=2048, size=256, coco=(480, 640),
+                 check=8, fid_check=256, layout_reps=5)
+# card against CPU (bars written before the first chip run). TF32 off:
+# fp32 sums in another order; TF32 on (cuDNN's default for fp32
+# convolutions, as eval_fid runs): 10-bit products through ~20 layers.
+# The FID gate holds TF32-off features: FID adds up feature differences
+# over 2,048 dimensions (i.i.d. noise of 1e-3 of the features' scale
+# moved a 64-image FID by 2.4 % on the CPU), so the TF32 FID is reported.
+POOL3_BARS = {"tf32_off": (0.999999, 1e-4), "tf32": (0.9999, 2e-2)}
+FID_REL_BAR = 1e-3
+
+
+def fid_images(n, size, seed, shift=0.0):
+    """n host images (n, size, size, 3) in [0, 1], float32, from `seed`:
+    smooth random fields (an 8x8 grid of colors bilinearly upsampled)
+    plus pixel noise; `shift` brightens them (the 'fake' set)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    coarse = torch.rand(n, 3, 8, 8, generator=g)
+    img = torch.nn.functional.interpolate(
+        coarse, size=(size, size), mode="bilinear",
+        align_corners=False).permute(0, 2, 3, 1).contiguous()
+    img.mul_(0.8).add_(torch.rand(n, size, size, 3, generator=g), alpha=0.2)
+    return img.add_(shift).clamp_(0.0, 1.0).numpy()
+
+
+def fid_extractor_run(torch, kind, variables, real, fake, sz, device, log,
+                      card) -> dict:
+    """One extractor through eval_fid's path below its file reading:
+    fid_of_batches over the real and fake batches (FID, wall s), then the
+    same feature function over every batch again, warm (img/s, peak
+    memory, the features), and on the card one profiled batch (busy
+    share, the convolutions' device time, FLOPs and rate, glue)."""
+    import numpy as np
+
+    from xlxmert_tpu_torch.cli import eval_fid
+
+    cuda = str(device).startswith("cuda")
+    B = sz["batch"]
+    batches = [a[j:j + B] for a in (real, fake)
+               for j in range(0, len(a), B)]
+    n_real = -(-len(real) // B)
+    t0 = time.perf_counter()
+    fid = eval_fid.fid_of_batches(batches[:n_real], batches[n_real:], kind,
+                                  variables, device)
+    wall = time.perf_counter() - t0
+    fn = eval_fid.feature_fn(kind, variables, device)
+    fn(batches[0])                                          # warm-up
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    feats = np.concatenate([fn(b) for b in batches])        # host arrays
+    sec = time.perf_counter() - t0
+    n = len(real) + len(fake)
+    if not (feats.shape == (n, 2048) and np.isfinite(feats).all()
+            and math.isfinite(fid) and fid > 0):
+        fail(f"FID {kind}: features {feats.shape} (finite: "
+             f"{np.isfinite(feats).all()}), FID {fid}")
+    out = {"fid": fid, "fid_of_batches_s": wall, "features_s": sec,
+           "images_per_s": n / sec,
+           "peak_bytes": torch.cuda.max_memory_allocated() if cuda else 0,
+           "profile": None}
+    log(f"  {kind}: FID {fid:.4f} through eval_fid.fid_of_batches "
+        f"({n} images, {wall:.2f}s); features {n / sec:.1f} img/s (B={B}, "
+        f"host batches in, host features out), peak "
+        f"{out['peak_bytes'] / 2**30:.2f} GiB ({card})")
+    if cuda:
+        from xlxmert_tpu_torch.models.inception import preprocess_for_fid
+
+        flop = conv_flops(torch, lambda: fn(batches[0]))
+        out["profile"] = p = profile_groups(
+            torch, lambda: fn(batches[0]), {"convolutions": "conv"})
+        conv_ms = p["device_ms_by_group"]["convolutions"]
+        out["conv_tflop"] = flop / 1e12
+        out["conv_tflop_per_s"] = flop / conv_ms / 1e9
+        log(f"    a profiled batch: wall {p['wall_ms']:.1f} ms, device "
+            f"{p['device_ms']:.1f} ms, busy {p['busy_share']:.2f}; "
+            f"convolutions {conv_ms:.1f} ms ({flop / 1e12:.3f} TFLOP "
+            f"counted, {out['conv_tflop_per_s']:.1f} TFLOP/s), glue "
+            f"{p['device_ms_by_group']['glue']:.1f} ms: " + ", ".join(
+                f"{k} {v:.2f}" for k, v in p["glue_top_ops_ms"].items()))
+        if kind == "inception":
+            out["layout_ms"] = layout_ms(
+                torch, variables, preprocess_for_fid(torch.from_numpy(
+                    batches[0]).to(device)), device, sz["layout_reps"])
+            log("    InceptionV3 forward at B={} from device input "
+                "(CUDA events, best of {}): channels-last {:.2f} ms, NCHW "
+                "{:.2f} ms".format(B, sz["layout_reps"],
+                                   out["layout_ms"]["channels_last"],
+                                   out["layout_ms"]["nchw"]))
+    return out, feats
+
+
+def layout_ms(torch, variables, x, device, reps) -> dict:
+    """InceptionV3's forward device time from an NHWC batch `x` as the
+    module runs it (channels-last kernels and activations) and converted
+    to NCHW (kernels and input), in turns (cl, nchw, nchw, cl, ...), the
+    best of `reps` each."""
+    from xlxmert_tpu_torch.models.inception import inception_from_variables
+
+    runs = {"channels_last": (inception_from_variables(variables).to(
+                device), x),
+            "nchw": (inception_from_variables(variables).to(
+                device, memory_format=torch.contiguous_format),
+                x.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1))}
+    best = dict.fromkeys(runs, float("inf"))
+    with torch.inference_mode():
+        for i in range(reps):
+            for name in (list(runs) if i % 2 == 0 else list(runs)[::-1]):
+                model, inp = runs[name]
+                model(inp)
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                model(inp)
+                end.record()
+                end.synchronize()
+                best[name] = min(best[name], start.elapsed_time(end))
+    return best
+
+
+def run_fid_path(torch, args, kernels, log, device="cuda", sizes=None,
+                 card="") -> dict:
+    """Phase (m): FID at eval_fid's widths (FID_SIZES; `sizes` overrides
+    them, the CPU test runs a small one). InceptionV3 (pt_inception's
+    architecture, 1,008 classes, random weights from --seed with drawn
+    BN statistics) and the ResNet-50 extractor, fp32 as eval_fid runs
+    them, each through eval_fid's path below its file reading over
+    `images` 'real' and as many 'fake' host images at `size` px in [0, 1]
+    (fid_extractor_run); the host resize of a batch at COCO's size
+    (bilinear_resize_np), apart; the Fréchet distance's host time at
+    D=2,048; card-vs-CPU gates: pool3 on `check` images (POOL3_BARS,
+    TF32 off and on) and the FID of `fid_check` images' features
+    (FID_REL_BAR, TF32 off; the TF32 FID reported), the check images
+    among them. No kernel of the port lies on this path: every launch
+    count must stay 0."""
+    import numpy as np
+
+    from xlxmert_tpu_torch.cli import eval_fid
+    from xlxmert_tpu_torch.core.convert import (
+        convert_torch_state_dict, split_variables,
+    )
+    from xlxmert_tpu_torch.models.inception import (
+        inception_from_variables, random_variables,
+    )
+    from xlxmert_tpu_torch.models.resnet import random_init, resnet50
+    from xlxmert_tpu_torch.utils.fid import (
+        fid_from_features, inception_feature_fn,
+    )
+
+    sz = dict(FID_SIZES, **(sizes or {}))
+    for k in kernels:
+        k.launches = 0
+    t0 = time.time()
+    real = fid_images(sz["images"], sz["size"], args.seed)
+    fake = fid_images(sz["images"], sz["size"], args.seed + 1, shift=0.1)
+    out = {"sizes": sz, "data_s": time.time() - t0, "extractors": {}}
+    tree = split_variables(convert_torch_state_dict(
+        random_init(resnet50(), args.seed).state_dict()))
+    variables = {"inception": random_variables(args.seed),
+                 "resnet": {"params": tree["params"],
+                            "batch_stats": tree["batch_stats"]}}
+    feats = {}
+    for kind in ("inception", "resnet"):
+        out["extractors"][kind], feats[kind] = fid_extractor_run(
+            torch, kind, variables[kind], real, fake, sz, device, log, card)
+        if str(device).startswith("cuda"):
+            torch.cuda.empty_cache()
+    n = sz["images"]
+    f = feats["inception"]
+    t0 = time.perf_counter()
+    fid = fid_from_features(f[:n], f[n:])
+    out["frechet_s"] = time.perf_counter() - t0
+    if abs(fid - out["extractors"]["inception"]["fid"]) > FID_REL_BAR * fid:
+        fail(f"FID: the timed pass's features give {fid}, fid_of_batches "
+             f"{out['extractors']['inception']['fid']}")
+    coco = np.random.default_rng(args.seed + 2).random(
+        (sz["batch"], *sz["coco"], 3), dtype=np.float32)
+    resize = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        np.stack([eval_fid.bilinear_resize_np(img) for img in coco])
+        resize.append(time.perf_counter() - t0)
+    out["resize_ms"] = min(resize) * 1e3
+    log(f"  host: bilinear_resize_np of {sz['batch']} images at "
+        f"{sz['coco'][0]}x{sz['coco'][1]} -> 299: {out['resize_ms']:.1f} ms "
+        f"({sz['batch'] * 1e3 / out['resize_ms']:.1f} img/s, one thread); "
+        f"the Fréchet distance at D=2048 over {n} + {n} features: "
+        f"{out['frechet_s']:.2f}s")
+
+    # card against CPU: the features of fid_check images (the first half
+    # real, the rest fake) on the CPU and on the card with TF32 off; the
+    # timed pass's (TF32 as cuDNN's default has it) are the third side
+    h, m, B = sz["fid_check"] // 2, sz["check"], sz["batch"]
+    check = np.concatenate([real[:h], fake[:h]])
+
+    def features(where):
+        fn = inception_feature_fn(inception_from_variables(
+            variables["inception"]), where)
+        return np.concatenate([fn(check[j:j + B])
+                               for j in range(0, len(check), B)])
+
+    t0 = time.perf_counter()
+    ref = features("cpu")
+    cpu_s = time.perf_counter() - t0
+    with tf32_off(torch):
+        exact = features(device)
+    timed = np.concatenate([f[:h], f[n:n + h]])
+    out["tf32_default"] = bool(torch.backends.cudnn.allow_tf32)
+    out["pool3_card_vs_cpu"] = {}
+    for mode, got in (("tf32_off", exact), ("tf32", timed)):
+        cos_bar, rel_bar = POOL3_BARS[mode]
+        a = agreement(torch, torch.from_numpy(got[:m]),
+                      torch.from_numpy(ref[:m]))
+        out["pool3_card_vs_cpu"][mode] = dict(a, bars=[cos_bar, rel_bar])
+        gate_agreement(f"pool3 ({mode})", a, cos_bar, rel_bar)
+        log(f"  pool3 card vs CPU on {m} images, {mode}: cosine "
+            f"{a['cosine']:.7f} (bar {cos_bar}), max |d| {a['max_rel']:.2e} "
+            f"of max |ref| (bar {rel_bar:g})")
+    fids = {k: fid_from_features(v[:h], v[h:]) for k, v in
+            (("cpu", ref), ("tf32_off", exact), ("tf32", timed))}
+    rel = {k: abs(v - fids["cpu"]) / fids["cpu"] for k, v in fids.items()
+           if k != "cpu"}
+    out["fid_card_vs_cpu"] = {"fid": fids, "rel_diff": rel,
+                              "bar": FID_REL_BAR, "images": 2 * h,
+                              "cpu_s": cpu_s}
+    log(f"  FID of {h} + {h} images: CPU {fids['cpu']:.6f}, card TF32 off "
+        f"{fids['tf32_off']:.6f} (relative {rel['tf32_off']:.2e}, bar "
+        f"{FID_REL_BAR:g}), card TF32 (the timed features) "
+        f"{fids['tf32']:.6f} (relative {rel['tf32']:.2e}, reported); CPU "
+        f"features {cpu_s:.1f}s; cuDNN's TF32 for fp32 convolutions: "
+        f"{'on' if out['tf32_default'] else 'off'} in the timed runs")
+    if not rel["tf32_off"] <= FID_REL_BAR:
+        fail(f"FID card vs CPU (TF32 off): {fids['tf32_off']} against "
+             f"{fids['cpu']} (relative {rel['tf32_off']} > {FID_REL_BAR})")
+    out["launches"] = {k.name: k.launches for k in kernels}
+    check_launches("fid", out["launches"], 1)
+    log("  launches of the port's kernels: none")
+    return out
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     try:
@@ -3977,9 +4417,19 @@ def main(argv=None) -> int:
     factory = run_factory_path(torch, args, kernels, log, card=card)
     factory["wall_s"] = time.time() - t0
     log(f"  phase (l) took {factory['wall_s']:.1f}s")
+    torch.cuda.empty_cache()
+    mz = FID_SIZES
+    log(f"(m) FID: InceptionV3 (1,008 classes) and ResNet-50 in fp32 "
+        f"through cli/eval_fid at B={mz['batch']}, {mz['images']} + "
+        f"{mz['images']} host images at {mz['size']} px; random weights "
+        f"({card})")
+    t0 = time.time()
+    fid = run_fid_path(torch, args, kernels, log, card=card)
+    fid["wall_s"] = time.time() - t0
+    log(f"  phase (m) took {fid['wall_s']:.1f}s")
     paths = {"int8": path, **bf16_paths, "int8+fused_block": fused_path,
              "finetune": ft, "layout": layout, "pretrain": pt,
-             "sample": sample, "gan": gan, "factory": factory}
+             "sample": sample, "gan": gan, "factory": factory, "fid": fid}
 
     # (d) the kernels line and the device line: times per serving forward
     # drawn from VQA_LENGTH_MIX (mha_blhd_train: per VQA training step);

@@ -591,10 +591,19 @@ def test_pretrain_phase_launches_exactly_the_kernel_phase_cases(monkeypatch):
     counts = {t: c["with_gradient"]
               for t, c in out["card_vs_cpu"]["float32"].items()}
     assert len(set(counts.values())) == 3
-    # steps of each kind: the pallas route's steps and the timed parts;
-    # each task of the check step on "card" and CPU in each type
+    # the exact resume: bit-equal on the CPU, where two runs do not
+    # spread; the profiled run's trace names its steps
+    fs = out["full_state"]
+    assert fs["spread"] == 0.0 and fs["resumed_bit_equal"]
+    assert fs["full_bytes"] > fs["lxrt_bytes"] > 0 and fs["leaves"] > 0
+    assert out["profile"]["steps"] == ["train_step vis_mask",
+                                       "train_step word_mask"]
+    # steps of each kind: the pallas route's steps, the timed parts, the
+    # full-state check's three runs and the profiled run; each task of
+    # the check step on "card" and CPU in each type
     steps = {"pt step": chip_smoke.PT_STEPS
-             + len(chip_smoke.PT_TASKS) * chip_smoke.PT_PARTS,
+             + len(chip_smoke.PT_TASKS) * chip_smoke.PT_PARTS
+             + 3 * chip_smoke.FULL_K + chip_smoke.PROFILE_STEPS,
              "pt check float32": 2 * len(chip_smoke.PT_TASKS),
              "pt check bfloat16": 2 * len(chip_smoke.PT_TASKS)}
     want = Counter()

@@ -145,6 +145,9 @@ def test_cli_flags_without_effect_and_not_ported(world, tmp_path):
                                    "--multiGPU"])
     cfg = to_finetune_config(ns, "gqa")
     assert cfg.task == "gqa" and cfg.mixed_precision and ns.device == "cuda"
-    with pytest.raises(NotImplementedError, match="profile"):
-        main(["--profile", "2"] + _common(world, tmp_path))
+    # --profile: accepted without effect, as the JAX fine-tuning CLI does
+    main(["--profile", "2", "--train", "train", "--valid", "minival",
+          "--epochs", "1"] + _common(world, tmp_path))
+    assert (tmp_path / "LAST.msgpack").exists()
+    assert not (tmp_path / "profile").exists()
     assert callable(gqa_main)

@@ -176,6 +176,26 @@ def test_factory_entry_points_need_the_card_unless_asked_for_the_cpu(
             main(argv)
 
 
+def test_fid_entry_points_need_the_card_unless_asked_for_the_cpu(
+        no_cuda, tmp_path):
+    from xlxmert_tpu_torch.cli import eval_fid
+    from xlxmert_tpu_torch.models.inception import (
+        inception_from_variables, random_variables,
+    )
+    from xlxmert_tpu_torch.utils import fid
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        eval_fid.main(["--real_dir", str(tmp_path), "--fake_dir",
+                       str(tmp_path)])
+    model = inception_from_variables(random_variables(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fid.inception_feature_fn(model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        eval_fid.feature_fn("resnet", {})
+    fn = fid.inception_feature_fn(model, "cpu")
+    assert fn(np.zeros((1, 299, 299, 3), np.float32)).shape == (1, 2048)
+
+
 def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
     from xlxmert_tpu_torch.ops import attention, fused_block, int8_matmul
     from xlxmert_tpu_torch.ops.quant import (

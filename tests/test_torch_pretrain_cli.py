@@ -3,7 +3,8 @@ end on the CPU over a tiny synthetic data root (a json caption corpus,
 a cluster-id pickle, a centroid table, a vocabulary): one epoch of the
 task round-robin, the per-task evaluation, and the epoch checkpoint in
 the JAX package's format, which the JAX model's parameter tree matches;
---bert_weights; and the JAX CLI's refusals."""
+--bert_weights; --save_full_state and the exact resume from a _FULL
+--load; --profile; and the JAX CLI's refusals."""
 import json
 import pickle
 
@@ -120,6 +121,24 @@ def test_pretrain_cli_bert_init(world):
         atol=1e-6)
 
 
+def test_step_timer_summarizes_as_the_jax_one():
+    """utils/profiling.StepTimer: the JAX package's warm-up skip and
+    summary keys; `force` takes a tensor in any nesting."""
+    import torch
+
+    from xlxmert_tpu.utils.profiling import StepTimer as JaxTimer
+    from xlxmert_tpu_torch.utils.profiling import StepTimer
+
+    timers = (StepTimer(skip_first=1), JaxTimer(skip_first=1))
+    for timer in timers:
+        for _ in range(3):
+            with timer:
+                StepTimer.force({"loss": [torch.ones(2)]})
+    assert len(timers[0].times) == len(timers[1].times) == 2
+    assert timers[0].summary().keys() == timers[1].summary().keys()
+    assert timers[0].summary()["n"] == 2 and StepTimer().summary() == {}
+
+
 @pytest.mark.parametrize("extra,message", [
     (["--visualLosses", "obj,attr"], "attr labels"),
     (["--visualLosses", "obj,feat"], "exact-feature source"),
@@ -137,8 +156,53 @@ def test_pretrain_cli_refuses_non_clustering_without_features(world):
 
 
 def test_pretrain_cli_full_state_is_not_ported_yet(world):
-    with pytest.raises(NotImplementedError, match="A11"):
-        main(argv(world, world / "snap_full", "--save_full_state"))
+    """--save_full_state (ported now; the test keeps its name): every
+    epoch writes Epoch%02d_FULL and Epoch%02d_LXRT from one snapshot, and
+    a run resumed from Epoch01_FULL writes an Epoch02_FULL equal to the
+    uninterrupted run's, leaf for leaf (on-device masks and dropout 0.1:
+    the generator follows the step)."""
+    from xlxmert_tpu_torch.core.checkpoint import load_pytree
+
+    straight = world / "snap_full"
+    main(argv(world, straight, "--save_full_state", "--epochs", "2"))
+    for e in (1, 2):
+        full = load_pytree(str(straight / f"Epoch{e:02d}_FULL.msgpack"))
+        assert int(full["step"]) == 3 * e and int(full["total_steps"]) == 6
+        lxrt = jax_load_pytree(str(straight / f"Epoch{e:02d}_LXRT.msgpack"))
+        assert jax.tree.map(np.shape, lxrt) == jax_param_shapes()
+        for a, b in zip(jax.tree.leaves(lxrt),
+                        jax.tree.leaves(full["params"])):
+            np.testing.assert_array_equal(a, b)
+    resumed = world / "snap_full_resumed"
+    main(argv(world, resumed, "--save_full_state", "--epochs", "2", "--load",
+              str(straight / "Epoch01_FULL.msgpack")))
+    log = (resumed / "log.txt").read_text()
+    assert "exact-resumed full train state" in log and "at epoch 1" in log
+    assert "horizon changed" not in log
+    assert not (resumed / "Epoch01_FULL.msgpack").exists()
+    want = jax.tree_util.tree_flatten_with_path(
+        load_pytree(str(straight / "Epoch02_FULL.msgpack")))[0]
+    got = jax.tree_util.tree_flatten_with_path(
+        load_pytree(str(resumed / "Epoch02_FULL.msgpack")))[0]
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (path, a), (_, b) in zip(got, want):
+        assert a.dtype == b.dtype, path
+        np.testing.assert_array_equal(a, b, err_msg=str(path))
+
+
+def test_pretrain_cli_profile_traces_the_training_steps(world):
+    """--profile 2 with 3 steps an epoch traces steps 1 and 2
+    (min(5, 3 - 2) = 1) into <output>/profile as a Chrome trace whose
+    ranges name each training step."""
+    out = world / "snap_profile"
+    main(argv(world, out, "--profile", "2"))
+    traces = sorted((out / "profile").glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    names = {e.get("name") for e in json.loads(traces[0].read_text())[
+        "traceEvents"]}
+    assert {"train_step word_mask", "train_step matched"} <= names
+    assert "train_step vis_mask" not in names
+    assert "profiler trace of 2 steps" in (out / "log.txt").read_text()
 
 
 def test_pretrain_cli_bbox_path(world):
@@ -182,7 +246,9 @@ def test_pretrain_cli_bbox_path(world):
 def test_pretrain_cli_load_resumes_and_refuses_a_full_state(world):
     """--load of an epoch checkpoint overlays it and resumes at its epoch
     (Epoch01 with --epochs 1: nothing left to train); a full-state tree
-    is refused until its exact resume is ported."""
+    resumes exactly (the test keeps its name from before that was
+    ported), with a warning when the schedule's horizon changed, and a
+    full-state tree of another layout is refused."""
     from xlxmert_tpu_torch.core.checkpoint import save_pytree
     from xlxmert_tpu_torch.core.convert import extract_centroids
 
@@ -193,10 +259,20 @@ def test_pretrain_cli_load_resumes_and_refuses_a_full_state(world):
     main(argv(world, out, "--load", str(first / "Epoch01_LXRT.msgpack")))
     assert "resumed from" in (out / "log.txt").read_text()
     assert not (out / "Epoch01_LXRT.msgpack").exists()
+    first_full = world / "snap_first_full"
+    main(argv(world, first_full, "--save_full_state"))
+    longer = world / "snap_longer"
+    main(argv(world, longer, "--epochs", "2", "--load",
+              str(first_full / "Epoch01_FULL.msgpack")))
+    log = (longer / "log.txt").read_text()
+    assert "horizon changed" in log and "total_steps=3" in log
+    assert "at epoch 1, step 3" in log
+    assert (longer / "Epoch02_LXRT.msgpack").exists()
+    assert not (longer / "Epoch01_LXRT.msgpack").exists()
     full = world / "Epoch01_FULL.msgpack"
     save_pytree({"params": ck, "opt_state": {}, "step": np.int32(3)},
                 str(full))
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="full-state checkpoint"):
         main(argv(world, world / "snap_full_load", "--load", str(full)))
     table = np.ones((3, FEAT), np.float32)
     assert extract_centroids({"module.vis_emb.weight": table}) is table

@@ -5,8 +5,8 @@ plus `--device`.
 Accepted without effect, as in the JAX CLI: `--multiGPU`,
 `--distributed`, `--numWorkers`, `--tqdm`, and here also `--rng_impl`
 (a JAX PRNG choice; the port draws dropout from a torch.Generator).
-`--profile` and `--save_full_state` raise until profiling and the
-full-state checkpoint are ported. Fine-tuning reads none of the
+`--profile` traces pre-training steps with torch.profiler; fine-tuning
+accepts it without effect, as the JAX CLI does. Fine-tuning reads none of the
 pre-training flags (task mix, masking, clustering, the h5 overrides,
 `--bert_weights`), as in the JAX package.
 """
@@ -48,8 +48,9 @@ def base_parser() -> argparse.ArgumentParser:
                    "environment cannot download from the HF hub")
     p.add_argument("--save_full_state", action="store_true",
                    help="also save Epoch%%02d_FULL.msgpack (params + "
-                   "optimizer + step) for an exact resume (not ported "
-                   "yet: raises)")
+                   "optimizer + step) for an exact resume; --load of a "
+                   "_FULL checkpoint restores the optimizer moments and "
+                   "the LR-schedule position")
     p.add_argument("--comment", default="")
     # model shape (param.py:107-112)
     p.add_argument("--llayers", type=int, default=9)
@@ -124,7 +125,11 @@ def base_parser() -> argparse.ArgumentParser:
                    "an operand and a plain PyTorch recompute backward; "
                    "xla (and auto) the einsum formulation")
     p.add_argument("--profile", type=int, default=0, metavar="N",
-                   help="trace N training steps (not ported yet: raises)")
+                   help="pre-training: trace N training steps of the "
+                   "first epoch (after up to 5 warm-up steps) with "
+                   "torch.profiler into <output>/profile, a Chrome trace "
+                   "for TensorBoard/Perfetto; fine-tuning accepts it "
+                   "without effect")
     p.add_argument("--numWorkers", dest="num_workers", type=int, default=4)
     p.add_argument("--tqdm", action="store_true")
     # host paths (new, replaces hardcoded ../datasets routing)

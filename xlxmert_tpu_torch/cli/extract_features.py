@@ -226,28 +226,6 @@ def iter_image_batches(paths, image_size, batch_size):
                                        np.float32)]), ids
 
 
-def _random_resnet(model, seed: int = 0):
-    """Random weights for the resnet archs without --weights: normal
-    conv kernels scaled by sqrt(2 / fan_in), identity BatchNorms, a small
-    classifier (numpy, from `seed`)."""
-    import torch
-
-    rng = np.random.default_rng(seed)
-    sd = {}
-    for k, t in model.state_dict().items():
-        if t.dim() == 4:
-            v = rng.standard_normal(t.shape) * np.sqrt(2.0 / t[0].numel())
-        elif t.dim() == 2:
-            v = rng.standard_normal(t.shape) * 0.01
-        elif k.endswith(("var", "weight")):
-            v = np.ones(t.shape)
-        else:
-            v = np.zeros(t.shape)
-        sd[k] = torch.from_numpy(v.astype(np.float32))
-    model.load_state_dict(sd)
-    return model
-
-
 def main(argv=None):
     ns = parse_args(argv)
 
@@ -263,7 +241,7 @@ def main(argv=None):
     from xlxmert_tpu_torch.core.checkpoint import load_any_checkpoint
     from xlxmert_tpu_torch.core.convert import split_variables
     from xlxmert_tpu_torch.models.resnet import (
-        grid_features, load_variables, resnet101, resnet50)
+        grid_features, load_variables, random_init, resnet101, resnet50)
 
     model = resnet50() if ns.arch == "resnet50" else resnet101()
     if ns.weights:
@@ -273,7 +251,7 @@ def main(argv=None):
     else:
         print("WARNING: random-init backbone (no --weights) — features are "
               "for pipeline testing only")
-        _random_resnet(model)
+        random_init(model)
     model = model.to(dev).eval()
 
     paths, out = resolve_inputs(ns, kind="grid")

@@ -85,8 +85,6 @@ def run(task: str, argv=None):
                    epochs=10, batch_size=32)
     ns = p.parse_args(argv)
     cfg = to_finetune_config(ns, task)
-    if ns.profile:
-        raise NotImplementedError("--profile is not ported yet")
 
     from xlxmert_tpu_torch.core.checkpoint import load_any_checkpoint
     from xlxmert_tpu_torch.core.metrics import RunLogger

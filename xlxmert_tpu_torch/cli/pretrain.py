@@ -14,11 +14,15 @@ datasets and the engine, merges --bert_weights or --load, and calls
 `pretrain()`, the epoch loop, which is callable with in-memory datasets:
 every epoch trains the task round-robin, evaluates each task and writes
 Epoch%02d_LXRT.msgpack (the JAX package's format) from a writer thread.
-Not ported yet: --save_full_state and the exact resume from a _FULL
-checkpoint, and --profile (they raise).
+--save_full_state also writes Epoch%02d_FULL.msgpack (params, Adam's
+moments and counts, the schedule position, the step) from the same host
+snapshot; a --load of such a file resumes exactly, whichever package
+wrote it. --profile N traces N steps of the first epoch with
+torch.profiler into <output>/profile.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from pathlib import Path
 from typing import Callable, Dict, Optional
@@ -60,25 +64,36 @@ def eval_generator(device, epoch: int, batch_index: int):
 
 
 def pretrain(eng, state, train_ds, valid_ds, cfg, centroids, logger,
-             start_epoch: int = 0,
-             on_step: Optional[Callable] = None) -> Dict[str, float]:
+             start_epoch: int = 0, on_step: Optional[Callable] = None,
+             profile: int = 0) -> Dict[str, float]:
     """The epoch loop: cfg.epochs - start_epoch epochs of shuffled full
     batches through `eng.train_step`, the task picked by
     `eng.task_for_step` round-robin; then each task's mean loss over
-    `valid_ds` and Epoch%02d_LXRT.msgpack under cfg.output, written on a
-    background thread (waited for before returning, also on error).
-    `on_step(step, task, metrics)` is called after every step. Returns
-    the last epoch's {valid/<task>: loss}."""
+    `valid_ds` and Epoch%02d_LXRT.msgpack under cfg.output (with
+    cfg.save_full_state also Epoch%02d_FULL.msgpack, horizon
+    eng.total_steps), written on a background thread (waited for before
+    returning, also on error). `on_step(step, task, metrics)` is called
+    after every step. `profile` > 0 traces that many steps of the first
+    epoch into cfg.output/profile (utils/profiling.trace), starting
+    after min(5, steps_per_epoch - profile) steps and ending early with
+    the epoch; each step is the range "train_step <task>". Returns the
+    last epoch's {valid/<task>: loss}."""
     from xlxmert_tpu_torch.core.checkpoint import (
-        AsyncCheckpointer, epoch_ckpt_name,
+        AsyncCheckpointer, epoch_ckpt_name, train_state_to_tree,
     )
     from xlxmert_tpu_torch.core.metrics import LossMeter
     from xlxmert_tpu_torch.data.io import PrefetchLoader
+    from xlxmert_tpu_torch.utils.profiling import annotate, trace
 
     steps_per_epoch = max(len(train_ds) // cfg.batch_size, 1)
     global_step = start_epoch * steps_per_epoch
     summary: Dict[str, float] = {}
     ckpt = AsyncCheckpointer()
+    profile_dir = str(Path(cfg.output) / "profile")
+    # after the first steps' warm-up, clamped so short epochs still trace
+    profile_start = (min(5, max(steps_per_epoch - profile, 0))
+                     if profile and not cfg.dry else -1)
+    tracing = contextlib.ExitStack()
     try:
         for epoch in range(start_epoch, cfg.epochs):
             t0 = time.time()
@@ -88,8 +103,16 @@ def pretrain(eng, state, train_ds, valid_ds, cfg, centroids, logger,
                                          drop_last=True))
             if not cfg.dry:
                 for i, batch in enumerate(loader):
+                    if epoch == start_epoch and i == profile_start:
+                        logger.info(f"profiler trace of {profile} steps -> "
+                                    f"{profile_dir}")
+                        tracing.enter_context(trace(profile_dir))
+                    elif epoch == start_epoch and i == profile_start + profile:
+                        tracing.close()
                     task = eng.task_for_step(global_step)
-                    metrics = eng.train_step(state, batch, task, centroids)
+                    with annotate(f"train_step {task}"):
+                        metrics = eng.train_step(state, batch, task,
+                                                 centroids)
                     if i % 50 == 0:
                         logger.scalars(global_step, {
                             f"{task}/loss": float(metrics["total_loss"]),
@@ -97,6 +120,7 @@ def pretrain(eng, state, train_ds, valid_ds, cfg, centroids, logger,
                     if on_step is not None:
                         on_step(global_step, task, metrics)
                     global_step += 1
+                tracing.close()  # an epoch shorter than the trace window
             meters: Dict[str, LossMeter] = {}
             for i, batch in enumerate(valid_ds.batches(cfg.batch_size)):
                 for task in cfg.mask_modalities:
@@ -108,9 +132,17 @@ def pretrain(eng, state, train_ds, valid_ds, cfg, centroids, logger,
             logger.scalars(global_step, summary)
             logger.info(f"epoch {epoch}: {summary} "
                         f"({time.time() - t0:.0f}s)")
-            ckpt.save(state.params(),
-                      str(Path(cfg.output) / epoch_ckpt_name(epoch + 1)))
+            params_path = str(Path(cfg.output) / epoch_ckpt_name(epoch + 1))
+            if cfg.save_full_state:
+                # one host snapshot, both files
+                ckpt.save_full(
+                    train_state_to_tree(state, eng.total_steps),
+                    str(Path(cfg.output) / f"Epoch{epoch + 1:02d}_FULL"
+                        ".msgpack"), params_path)
+            else:
+                ckpt.save(state.params(), params_path)
     finally:
+        tracing.close()
         # a queued save survives an exception: the epoch's checkpoint is
         # not lost to a writer thread killed mid-write
         ckpt.wait()
@@ -157,16 +189,10 @@ def main(argv=None):
     ns = base_parser().parse_args(argv)
     cfg = to_train_config(ns)
     _check_flags(cfg)
-    if cfg.save_full_state:
-        raise NotImplementedError(
-            "--save_full_state is not ported yet (ROADMAP A11: the "
-            "bit-exact full-state save and resume)")
-    if ns.profile:
-        raise NotImplementedError("--profile is not ported yet")
 
     from xlxmert_tpu_torch.core.checkpoint import (
         is_full_state_tree, load_any_checkpoint, merge_params,
-        parse_start_epoch,
+        parse_start_epoch, restore_train_state,
     )
     from xlxmert_tpu_torch.core.metrics import RunLogger
     from xlxmert_tpu_torch.data.datasets import PretrainDataset
@@ -281,21 +307,31 @@ def main(argv=None):
             "--bert_weights pytorch_model.bin or --fromScratch to silence.")
     if cfg.load:
         loaded = load_any_checkpoint(cfg.load, keep_full_state=True)
-        if is_full_state_tree(loaded):
-            raise NotImplementedError(
-                f"{cfg.load} is a full-state checkpoint: its exact resume "
-                "is not ported yet (ROADMAP A11)")
-        merged, missing, unexpected = merge_params(state.params(), loaded)
-        if missing or unexpected:
-            logger.info(f"checkpoint overlay (strict=False): "
-                        f"{len(missing)} missing, {len(unexpected)} "
-                        f"unexpected param paths")
-        state.load_params(merged)
         start_epoch = parse_start_epoch(cfg.load)
-        logger.info(f"resumed from {cfg.load} at epoch {start_epoch}")
+        if is_full_state_tree(loaded):
+            # exact resume: Adam's moments and the schedule's position
+            saved_total = restore_train_state(state, loaded)
+            if saved_total is not None and saved_total != total_steps:
+                logger.info(
+                    f"WARNING: LR-schedule horizon changed: checkpoint "
+                    f"was saved with total_steps={saved_total}, this run "
+                    f"computes {total_steps} (epochs/batch/data changed) "
+                    f"— continuing is fine, but the continuation is NOT "
+                    f"bit-identical to an uninterrupted run")
+            logger.info(f"exact-resumed full train state from {cfg.load} "
+                        f"at epoch {start_epoch}, step {state.step}")
+        else:
+            merged, missing, unexpected = merge_params(state.params(),
+                                                       loaded)
+            if missing or unexpected:
+                logger.info(f"checkpoint overlay (strict=False): "
+                            f"{len(missing)} missing, {len(unexpected)} "
+                            f"unexpected param paths")
+            state.load_params(merged)
+            logger.info(f"resumed from {cfg.load} at epoch {start_epoch}")
 
     pretrain(eng, state, train_ds, valid_ds, cfg, centroids, logger,
-             start_epoch=start_epoch)
+             start_epoch=start_epoch, profile=ns.profile)
     logger.close()
 
 

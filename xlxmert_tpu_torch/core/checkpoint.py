@@ -1,7 +1,7 @@
-"""Checkpoints (port of xlxmert_tpu/core/checkpoint.py's save_pytree,
+"""Checkpoints (port of xlxmert_tpu/core/checkpoint.py): save_pytree,
 load_pytree, merge_params, load_any_checkpoint, epoch_ckpt_name,
-parse_start_epoch and AsyncCheckpointer; the bit-exact full-state save
-and resume are not ported yet).
+parse_start_epoch, AsyncCheckpointer, and the full train state of an
+exact resume (train_state_to_tree, restore_train_state).
 
 Two formats: the reference's flax msgpack pytrees (`.msgpack`, fp32 or
 bf16 numpy leaves) and torch `.pth`/`.pt`/`.bin` state_dicts, converted
@@ -21,7 +21,7 @@ from __future__ import annotations
 import os
 import re
 import threading
-from typing import Any, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -152,6 +152,130 @@ def load_any_checkpoint(path: str, keep_full_state: bool = False) -> Any:
     return tree
 
 
+def same_layout(want: Any, got: Any, what: str, path: str = "") -> None:
+    """Raise unless `got` has `want`'s nested-dict structure and leaf
+    shapes (a checkpoint of another config fails loudly)."""
+    where = path or "/"
+    if isinstance(want, dict) != isinstance(got, dict):
+        raise ValueError(f"{what}: {where} is not the model's kind of node "
+                         "(a different config?)")
+    if not isinstance(want, dict):
+        if tuple(np.shape(want)) != tuple(np.shape(got)):
+            raise ValueError(f"{what}: {where} has shape {np.shape(got)}, "
+                             f"the model's {np.shape(want)} (a different "
+                             "config?)")
+        return
+    if set(want) != set(got):
+        raise ValueError(f"{what}: {where} holds {sorted(got)}, the model's "
+                         f"state {sorted(want)} (a different config?)")
+    for k in want:
+        same_layout(want[k], got[k], what, f"{path}/{k}")
+
+
+def _at(tree: Any, path: Tuple[str, ...]) -> Any:
+    for p in path:
+        tree = tree[p]
+    return tree
+
+
+def _param_paths(opt) -> Dict[str, Tuple[Tuple[str, ...], Any]]:
+    """{parameter name: (its flax path, the transpose its value takes)}."""
+    from xlxmert_tpu_torch.core.convert import flax_path
+
+    return {n: flax_path(n, p.dim()) for n, p in opt.params.items()}
+
+
+def _tree_of(paths: Dict[str, Tuple[Tuple[str, ...], Any]],
+             values: Dict[str, Any]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for name, (path, _) in paths.items():
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = values[name]
+    return tree
+
+
+def train_state_to_tree(state, total_steps: Optional[int] = None) -> dict:
+    """A TrainState (tasks/finetune.TrainState with its ReferenceAdamW) ->
+    the JAX package's full-state tree {params, opt_state, step[,
+    total_steps]}, numpy on the host: params in the flax layout;
+    opt_state as flax writes BertAdamState (`count`: an int32 scalar per
+    parameter, `mu` and `nu` in the params' layout, `sched_step` an
+    int32 scalar); `total_steps`, the schedule's horizon, lets a resume
+    see a changed one. The reference saves only the model and restarts
+    Adam and the schedule on resume (lxmert_pretrain.py:675-685): this
+    is the exact resume's state. A state on the card is copied to the
+    host; on the CPU the leaves may share the state's memory, so the
+    next step changes them (AsyncCheckpointer.save_full snapshots)."""
+    from xlxmert_tpu_torch.core.convert import convert_torch_state_dict
+
+    opt = state.opt
+    paths = _param_paths(opt)
+    tree = {"params": state.params(),
+            "opt_state": {
+                "count": _tree_of(paths, {
+                    n: np.asarray(c, np.int32) for n, c in
+                    opt.count.items()}),
+                "mu": convert_torch_state_dict(opt.m),
+                "nu": convert_torch_state_dict(opt.v),
+                "sched_step": np.asarray(opt.sched_step, np.int32)},
+            "step": np.asarray(state.step, np.int32)}
+    if total_steps is not None:
+        tree["total_steps"] = np.asarray(total_steps, np.int32)
+    return tree
+
+
+def _full_layout(state) -> dict:
+    """train_state_to_tree's structure and shapes without a copy (leaves
+    are zero-stride views)."""
+    opt = state.opt
+    paths = _param_paths(opt)
+    shaped = {}
+    for name, p in opt.params.items():
+        perm = paths[name][1]
+        shape = tuple(p.shape) if perm is None else tuple(
+            p.shape[i] for i in perm)
+        shaped[name] = np.broadcast_to(np.float32(0), shape)
+    params = _tree_of(paths, shaped)
+    scalar = np.broadcast_to(np.int32(0), ())
+    return {"params": params,
+            "opt_state": {"count": _tree_of(paths, dict.fromkeys(
+                opt.params, scalar)), "mu": params, "nu": params,
+                "sched_step": scalar},
+            "step": scalar}
+
+
+def restore_train_state(state, tree_or_path) -> Optional[int]:
+    """Load a full-state tree (train_state_to_tree's layout, as the JAX
+    package's cli/pretrain --save_full_state writes it; or the path of
+    its msgpack) into `state` in place: parameters, Adam's moments,
+    per-parameter counts, the schedule position and the step. The
+    structure and shapes must be the model's (a loud failure when the
+    config changed between save and resume). Returns the saved
+    total_steps (None when the file has none): the caller compares it
+    with its own horizon."""
+    import torch
+
+    from xlxmert_tpu_torch.core.convert import flax_to_state_dict
+
+    tree = (load_pytree(tree_or_path) if isinstance(tree_or_path, str)
+            else dict(tree_or_path))
+    saved_total = tree.pop("total_steps", None)
+    same_layout(_full_layout(state), tree, "full-state checkpoint")
+    opt, opt_tree = state.opt, tree["opt_state"]
+    state.load_params(tree["params"])
+    with torch.no_grad():
+        for moments, sub in ((opt.m, opt_tree["mu"]), (opt.v, opt_tree["nu"])):
+            for name, value in flax_to_state_dict(sub).items():
+                moments[name] = value.to(opt.params[name].device)
+    for name, (path, _) in _param_paths(opt).items():
+        opt.count[name] = int(np.asarray(_at(opt_tree["count"], path)))
+    opt.sched_step = int(np.asarray(opt_tree["sched_step"]))
+    state.step = int(np.asarray(tree["step"]))
+    return None if saved_total is None else int(np.asarray(saved_total))
+
+
 def epoch_ckpt_name(epoch: int) -> str:
     """The reference's name: Epoch%02d_LXRT (lxmert_pretrain.py:549)."""
     return f"Epoch{epoch:02d}_LXRT.msgpack"
@@ -184,6 +308,27 @@ class AsyncCheckpointer:
         def work():
             try:
                 save_pytree(host, path)
+            except BaseException as e:  # re-raised on the caller's thread
+                self._exc = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def save_full(self, full_tree: Any, full_path: str,
+                  params_path: str) -> None:
+        """One host snapshot, two files: the full train state
+        (train_state_to_tree) at `full_path` and its params, the
+        Epoch%02d_LXRT file, at `params_path`, both written on the
+        writer thread. The tree is already on the host
+        (train_state_to_tree copies from the card): no second device
+        copy is made."""
+        self.wait()
+        host = _copy_tree(full_tree)
+
+        def work():
+            try:
+                save_pytree(host, full_path)
+                save_pytree(host["params"], params_path)
             except BaseException as e:  # re-raised on the caller's thread
                 self._exc = e
 

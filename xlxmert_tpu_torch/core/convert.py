@@ -70,42 +70,51 @@ def _insert(tree: Dict, path: Tuple[str, ...], value: np.ndarray) -> None:
     node[path[-1]] = value
 
 
+def flax_path(key: str, ndim: int
+              ) -> Tuple[Optional[Tuple[str, ...]], Optional[Tuple[int, ...]]]:
+    """(path, perm) of a torch state-dict entry `key` (no DDP prefix)
+    holding `ndim` dimensions: its path in the flax tree and the
+    transpose its value takes there (None: as it is). The path is None
+    for entries the tree leaves out (weight-tied tensors, BN step
+    counters)."""
+    if key in _TIED_KEYS or key.endswith("num_batches_tracked"):
+        return None, None
+    path = list(_fold_indices(key))
+    leaf = path[-1]
+    if leaf == "running_mean":
+        path[-1] = "mean"
+    elif leaf == "running_var":
+        path[-1] = "var"
+    perm = None
+    if key == "obj_predict_head.out_cluster.bias":
+        path = ["obj_predict_head", "out_cluster_bias"]
+    elif key == "emb_classifier.bias":
+        path = ["emb_classifier_bias"]
+    elif leaf in ("weight", "weight_orig"):
+        parent = path[-2] if len(path) >= 2 else ""
+        if ndim == 1:
+            path[-1] = "scale"
+        elif ndim == 2 and parent in _EMBEDDING_PARENTS:
+            path[-1] = "embedding"
+        elif ndim == 2:
+            path[-1], perm = "kernel", (1, 0)
+        elif ndim == 4:
+            path[-1], perm = "kernel", (2, 3, 1, 0)
+        else:
+            path[-1] = "kernel"
+    return tuple(path), perm
+
+
 def convert_torch_state_dict(state_dict: Mapping[str, Any]
                              ) -> Dict[str, Any]:
     """Generic torch state_dict -> flax-style nested param dict."""
     tree: Dict[str, Any] = {}
     for key, tensor in strip_ddp_prefix(state_dict).items():
-        if key in _TIED_KEYS:
-            continue
-        if key.endswith("num_batches_tracked"):
-            continue
         arr = _to_numpy(tensor)
-        path = list(_fold_indices(key))
-        leaf = path[-1]
-        if leaf == "running_mean":
-            path[-1] = "mean"
-        elif leaf == "running_var":
-            path[-1] = "var"
-
-        if key == "obj_predict_head.out_cluster.bias":
-            path = ["obj_predict_head", "out_cluster_bias"]
-        elif key == "emb_classifier.bias":
-            path = ["emb_classifier_bias"]
-        elif leaf in ("weight", "weight_orig"):
-            parent = path[-2] if len(path) >= 2 else ""
-            if arr.ndim == 1:
-                path[-1] = "scale"
-            elif arr.ndim == 2 and parent in _EMBEDDING_PARENTS:
-                path[-1] = "embedding"
-            elif arr.ndim == 2:
-                path[-1] = "kernel"
-                arr = arr.T
-            elif arr.ndim == 4:
-                path[-1] = "kernel"
-                arr = arr.transpose(2, 3, 1, 0)
-            else:
-                path[-1] = "kernel"
-        _insert(tree, tuple(path), arr)
+        path, perm = flax_path(key, arr.ndim)
+        if path is None:
+            continue
+        _insert(tree, path, arr if perm is None else arr.transpose(perm))
     return tree
 
 

@@ -170,6 +170,27 @@ def load_variables(model: ResNet, variables: Dict) -> ResNet:
     return model
 
 
+def random_init(model: ResNet, seed: int = 0) -> ResNet:
+    """Random weights (numpy, from `seed`): normal conv kernels scaled by
+    sqrt(2 / fan_in), identity BatchNorms, a small classifier."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, t in model.state_dict().items():
+        if t.dim() == 4:
+            v = rng.standard_normal(t.shape) * np.sqrt(2.0 / t[0].numel())
+        elif t.dim() == 2:
+            v = rng.standard_normal(t.shape) * 0.01
+        elif k.endswith(("var", "weight")):
+            v = np.ones(t.shape)
+        else:
+            v = np.zeros(t.shape)
+        sd[k] = torch.from_numpy(v.astype(np.float32))
+    model.load_state_dict(sd)
+    return model
+
+
 def grid_features(model: ResNet, images: torch.Tensor,
                   grid_size: int = 8) -> torch.Tensor:
     """(B, grid, grid, 2048) features from the layer4 map: the map

@@ -95,13 +95,15 @@ def accumulate_or_apply(opt: ReferenceAdamW,
 class TrainState:
     """The model (its fp32 parameters are the trained ones), the
     optimizer over them, the raw gradient-sum accumulator (update_freq
-    > 1), the dropout generator and the step count."""
+    > 1), the dropout generator, the step count, and the run's seed
+    (pre-training reseeds the generator from it and the step)."""
 
     model: nn.Module
     opt: ReferenceAdamW
     generator: torch.Generator
     acc: Optional[Dict[str, torch.Tensor]] = None
     step: int = 0
+    seed: int = 0
 
     def params(self) -> Dict[str, Any]:
         """The parameters as the JAX package's flax tree (numpy)."""

@@ -18,8 +18,10 @@ The reference's behaviour, as the JAX package reproduces it
     optimizer (`ReferenceAdamW.step(grads, used=...)`).
 
 The masks and the dropout draw from the state's `torch.Generator` on
-the device (the JAX package folds the step into a PRNG key; the bits
-differ). One process and one device: the JAX package's mesh and tensor
+the device, reseeded before every training step from the run's seed and
+the step (`step_seed`), as the JAX package folds the step into its PRNG
+key (the bits differ): a run resumed from a full-state checkpoint draws
+what the uninterrupted run draws. One process and one device: the JAX package's mesh and tensor
 parallelism come with distributed training, and its
 `chained_train_step` (k steps in one lax.scan, amortising the TPU's
 dispatch) has its card counterpart in CUDA graphs, training-speed work
@@ -220,6 +222,12 @@ def build_inputs_and_labels(batch: Dict[str, torch.Tensor],
             labels)
 
 
+def step_seed(seed: int, step: int) -> int:
+    """The generator's seed for training step `step` of the run seeded
+    with `seed`."""
+    return ((seed & 0x7FFFFFFF) << 32) | (step & 0xFFFFFFFF)
+
+
 class PretrainEngine:
     """The model, its optimizer and the per-task steps. `train_attention`
     is the training attention route ("xla", "pallas_blhd" or "auto")."""
@@ -271,7 +279,8 @@ class PretrainEngine:
     def create_state(self, seed: int, params=None) -> TrainState:
         """The model on the engine's device holding `params` (a flax
         tree; init_params(seed) when None), its optimizer and the
-        generator of the masks and the dropout, seeded with `seed`."""
+        generator of the masks and the dropout, seeded with `seed` (and
+        reseeded from it and the step before each training step)."""
         params = params if params is not None else self.init_params(seed)
         model = self.build_model()
         model.load_state_dict(flax_to_state_dict(params))
@@ -282,7 +291,7 @@ class PretrainEngine:
                              cfg.weight_decay, cfg.clip_grad_norm,
                              cfg.adam_eps)
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        return TrainState(model, opt, gen)
+        return TrainState(model, opt, gen, seed=seed)
 
     # -- steps --------------------------------------------------------------
     def place(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -353,6 +362,7 @@ class PretrainEngine:
         its loss reaches are updated, the others keep their moments and
         counts. Returns the losses and the global gradient norm as
         device tensors."""
+        state.generator.manual_seed(step_seed(state.seed, state.step))
         losses, grads = self.loss_and_grads(state.model, self.place(batch),
                                             task, centroids, state.generator)
         used = {n for n, g in grads.items() if g is not None}

@@ -39,6 +39,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from xlxmert_tpu_torch.core.checkpoint import same_layout
 from xlxmert_tpu_torch.core.config import GanConfig
 from xlxmert_tpu_torch.core.convert import (
     convert_torch_state_dict, flax_to_state_dict,
@@ -108,25 +109,6 @@ def state_to_tree(state: GanState) -> Dict:
             "stats_g": g.get("batch_stats", {})}
 
 
-def _same_layout(want: Any, got: Any, path: str) -> None:
-    where = path or "/"
-    if isinstance(want, dict) != isinstance(got, dict):
-        raise ValueError(f"GAN state checkpoint: {where} is not the "
-                         "model's kind of node (a different config?)")
-    if not isinstance(want, dict):
-        if tuple(np.shape(want)) != tuple(np.shape(got)):
-            raise ValueError(f"GAN state checkpoint: {where} has shape "
-                             f"{np.shape(got)}, the model's "
-                             f"{np.shape(want)} (a different config?)")
-        return
-    if set(want) != set(got):
-        raise ValueError(
-            f"GAN state checkpoint: {where} holds {sorted(got)}, the "
-            f"model's state {sorted(want)} (a different config?)")
-    for k in want:
-        _same_layout(want[k], got[k], f"{path}/{k}")
-
-
 @torch.no_grad()
 def restore_state(state: GanState, tree: Dict) -> GanState:
     """Load a tree in `state_to_tree`'s layout (the JAX package's
@@ -134,7 +116,7 @@ def restore_state(state: GanState, tree: Dict) -> GanState:
     as the JAX package's restore_state requires (a loud failure when the
     config changed between save and resume)."""
     tree = {k: v for k, v in tree.items() if k != "total_steps"}
-    _same_layout(state_to_tree(state), tree, "")
+    same_layout(state_to_tree(state), tree, "GAN state checkpoint")
     load_variables(state.G, tree["params_g"], tree["sn_g"],
                    tree["stats_g"] or None)
     load_variables(state.D, tree["params_d"], tree["sn_d"])
