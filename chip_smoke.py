@@ -176,6 +176,20 @@ Phases, each of which fails the script on error:
       Fréchet distance at D=2,048 timed apart; pool3 card vs CPU on 8
       images (TF32 off and on, POOL3_BARS) and the FID of 256 images'
       card features (TF32 off) against their CPU features (FID_REL_BAR);
+  (n) distributed training (parallel/) at full width, every rank a
+      process spawned after the kernels are built, the ranks sharing the
+      one card over gloo (NCCL takes one rank a device): a 2-rank
+      launch with torchrun's environment through cli/finetune (B=32 a
+      rank, both training attention routes, the int8 evaluation merged
+      over the ranks), then in the same group tp = 2 pre-training per
+      task (6 heads a rank, fp32, dropout-free on injected masks) held to
+      the single-process step on the card (STEP_BARS["float32"]) and
+      timed, and the sharded feature table's lookup, bit-equal to the
+      unsharded one; a 3-rank GPipe of the 9 language layers (M = 4)
+      held to the sequential stack. Step ms, examples/s a rank and in
+      all, the all-reduce MiB and ms a step, the pipeline's measured
+      bubble; every rank's launches summed. Phase (b) holds
+      mha_blhd_train to its plain version at the tp step's 6 heads;
   (d) one JSON line listing the kernels (times per serving forward of
       the length mix; mha_blhd_train's per training step, mha_hbatch's
       per layout forward), then the device line last.
@@ -417,7 +431,8 @@ KINDS = {"mha_blhd": forward_kinds() + check_kinds() + FT_EVAL_KINDS,
          # training steps: VQA, NLVR2 and the card-vs-CPU step per type
          "mha_blhd_train": ["ft vqa", "ft nlvr2", "ft check float32",
                             "ft check bfloat16", "pt step",
-                            "pt check float32", "pt check bfloat16"],
+                            "pt check float32", "pt check bfloat16",
+                            "n dp step"],
          # (h)'s hbatch forwards at B=BATCH, text LAYOUT_TEXT
          "mha_hbatch": [f"layout L={LAYOUT_TEXT}"]}
 
@@ -817,22 +832,46 @@ def train_attention_cases(cfg):
                                                 f"pt check {dt}": n}
                     else:
                         uses = {kind: n} if mask and dt == "bfloat16" else {}
+                    if kind == "ft vqa" and uses:
+                        # (n)'s data-parallel steps: B=FT_BATCH a rank
+                        uses["n dp step"] = n
                     yield b, lq, lk, bias, dt, mask, uses
 
 
-def check_train_attention(torch, F, attention, cfg, rng, log):
+# (n)'s tensor-parallel pre-training step: fp32, dropout-free, H/2 heads
+TP_KINDS = ["n tp check float32"]
+
+
+def tp_train_attention_cases(cfg):
+    """(batch, Lq, Lk, with_bias, dtype, with_mask, heads, uses) of
+    mha_blhd_train in (n)'s tp = 2 pre-training steps: each rank's
+    H / 2 heads (384 packed columns at full width) at PT_CHECK, fp32,
+    without the dropout mask."""
+    vis, text = 64, FT_TEXT
+    nl, nr, nx = cfg.l_layers, cfg.r_layers, cfg.x_layers
+    for lq, lk, bias, n in ((text, text, True, nl + nx),
+                            (vis, vis, False, nr + nx),
+                            (text, vis, False, nx), (vis, text, True, nx)):
+        yield (PT_CHECK, lq, lk, bias, "float32", False,
+               cfg.num_attention_heads // 2, {"n tp check float32": n})
+
+
+def check_train_attention(torch, F, attention, cfg, rng, log, cases=None):
     """mha_blhd_train against mha_blhd_train_reference on column slices
     of fused projections with a (B, Lk) bias and a pre-scaled dropout
     mask drawn at the model's rate; SDPA with dropout_p at that rate as
     the library call (it draws its own mask); and the plain-PyTorch time
     of the backward (blhd_einsum_reference recomputed, then its
-    gradients for q, k and v)."""
-    H, HD = cfg.num_attention_heads, cfg.hidden_size
-    D = HD // H
+    gradients for q, k and v). `cases` (tp_train_attention_cases) give
+    their own head count; train_attention_cases' take the model's."""
+    D = cfg.hidden_size // cfg.num_attention_heads
     rate = cfg.attention_probs_dropout_prob
     rows = []
-    for B, lq, lk, with_bias, dt, with_mask, uses in \
-            train_attention_cases(cfg):
+    if cases is None:
+        cases = ((*c[:-1], cfg.num_attention_heads, c[-1])
+                 for c in train_attention_cases(cfg))
+    for B, lq, lk, with_bias, dt, with_mask, H, uses in cases:
+        HD = H * D
         dtype = getattr(torch, dt)
         q, k, v, bias = _qkv_bias(torch, rng, B, lq, lk, HD, dtype,
                                   with_bias)
@@ -873,11 +912,13 @@ def check_train_attention(torch, F, attention, cfg, rng, log):
                   + (0 if mask is None else mask.numel() * q.element_size())
                   + (0 if bias is None else bias.numel() * 2))
         row = {"B": B, "Lq": lq, "Lk": lk, "bias": with_bias, "dtype": dt,
-               "mask": with_mask, "max_abs_err": err, "tol": MHA_TOL[dt],
+               "mask": with_mask, "heads": H, "max_abs_err": err,
+               "tol": MHA_TOL[dt],
                "enqueue_ms": enqueue, **times, "uses": uses,
                **bound(nbytes, 4.0 * B * H * lq * lk * D, dt)}
         rows.append(row)
-        log(f"  mha_blhd_train B={B:2d} {lq:2d}x{lk:2d} mask={with_mask!s:5} "
+        log(f"  mha_blhd_train B={B:2d} H={H:2d} {lq:2d}x{lk:2d} "
+            f"mask={with_mask!s:5} "
             f"{dt:8} err {err:.2e} (tol {MHA_TOL[dt]:g})  kernel "
             f"{row['ms']:.4f} ms (back to back {enqueue:.4f})  plain "
             f"{row['plain_ms']:.4f}  sdpa(dropout) "
@@ -4246,6 +4287,644 @@ def run_fid_path(torch, args, kernels, log, device="cuda", sizes=None,
     return out
 
 
+# ---------------------------------------------------------------------------
+# (n) distributed training: several ranks on the card
+# ---------------------------------------------------------------------------
+
+# two ranks share the one card over gloo (NCCL takes one rank a device);
+# the pipeline runs three stages
+DIST_SIZES = dict(ranks=2, batch=FT_BATCH, steps=3, eval=2 * FT_BATCH,
+                  images=64, answers=3129, text=FT_TEXT, feat_dim=2048,
+                  pt_batch=PT_CHECK, stages=3, micro=4,
+                  pipe_batch=FT_BATCH, table_images=IMAGES,
+                  table_batch=BATCH, timeout=600)
+DIST_ROUTES = ("pallas_blhd", "xla")
+PIPE_RTOL = 2e-5          # the JAX pipeline test's forward bar
+PIPE_GRAD_COSINE = 0.99999
+PIPE_GRAD_REL = 5e-4      # max |d| of the gradients over their max |value|
+
+
+def _after_first(values):
+    rest = values[1:] or values
+    return sum(rest) / len(rest)
+
+
+# phase (n)'s rank bodies: each runs in a process of its own, which
+# parallel/launch.spawn starts after the parent built the kernels. A
+# spawned rank re-imports this file, whose top level imports only the
+# standard library; weights and data come from `seed`, made on every rank
+# alike.
+
+
+def rank_cases(rank: int, calls) -> list:
+    """Several rank bodies in one spawn: [(name, kwargs), ...] run in
+    order, their results in a list."""
+    return [globals()[name](rank, **kw) for name, kw in calls]
+
+
+def port_kernels() -> list:
+    """The port's seven kernels, in the kernels line's order."""
+    from xlxmert_tpu_torch.ops import attention, ffn, fused_block, int8_matmul
+
+    return [attention.KERNEL, int8_matmul.KERNEL, ffn.KERNEL,
+            attention.FUSED_MHA_KERNEL, fused_block.KERNEL,
+            attention.TRAIN_KERNEL, attention.HBATCH_KERNEL]
+
+
+def launch_counts(kernels) -> dict:
+    return {k.name: k.launches for k in kernels}
+
+
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def synthetic_vqa(seed: int, n_train: int, n_eval: int, n_images: int,
+                  n_answers: int, text: int, feat_dim: int):
+    """In-memory VQA train and eval sets: questions of 3..text-2 random
+    words over a small vocabulary, each on one of `n_images` random
+    (64, feat_dim) feature rows, with a soft target on 1-3 of
+    `n_answers` answers. Returns (train, eval, label2ans)."""
+    import numpy as np
+
+    from xlxmert_tpu_torch.data.datasets import VQADataset
+    from xlxmert_tpu_torch.data.evaluators import VQAEvaluator
+    from xlxmert_tpu_torch.data.tokenization import Tokenizer
+
+    rng = np.random.RandomState(seed)
+    words = [f"w{i}" for i in range(200)]
+    vocab = {t: i for i, t in enumerate(
+        ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words)}
+    rows = rng.randn(n_images, 64, feat_dim).astype(np.float32)
+
+    class Reader:
+        def get(self, img_id):
+            return rows[int(str(img_id).rsplit("_", 1)[1])]
+
+    label2ans = [f"ans{i}" for i in range(n_answers)]
+    ans2label = {a: i for i, a in enumerate(label2ans)}
+    data = []
+    for q in range(n_train + n_eval):
+        n = rng.randint(3, max(text - 2, 4))
+        picks = rng.choice(n_answers, size=rng.randint(1, 4), replace=False)
+        data.append({"question_id": q, "img_id": f"img_{rng.randint(n_images)}",
+                     "sent": " ".join(rng.choice(words, n)),
+                     "label": {label2ans[a]: float(rng.choice(
+                         (0.3, 0.6, 0.9, 1.0))) for a in picks}})
+    tok = Tokenizer(vocab)
+
+    def build(part):
+        ds = VQADataset(part, tok, Reader(), ans2label, label2ans,
+                        max_text_length=text, grid_size=8)
+        ds.evaluator = VQAEvaluator(ds.id2datum)
+        return ds
+
+    return build(data[:n_train]), build(data[n_train:]), label2ans
+
+
+def finetune_launch(rank: int, routes: tuple, seed: int,
+                    sizes: dict, out_dir: str, device: str = "cuda",
+                    model_kw: dict | None = None) -> dict:
+    """A rank of a torchrun-style launch of cli/finetune: the process
+    group from the environment (maybe_initialize_multihost, as the CLI's
+    `run` starts it), this rank's shard of an in-memory VQA set,
+    cli/finetune.finetune() for one epoch on each training attention
+    route with the int8 evaluation merged over the ranks. Returns per
+    route every step's ms, loss, gradient norm, launches and collective
+    bytes and seconds, the launches of the evaluation, its forwards on
+    this rank and the merged score."""
+    import torch
+
+    from xlxmert_tpu_torch.cli.finetune import finetune
+    from xlxmert_tpu_torch.core.config import FinetuneConfig, LxmertConfig
+    from xlxmert_tpu_torch.core.metrics import RunLogger
+    from xlxmert_tpu_torch.parallel import mesh as pmesh
+    from xlxmert_tpu_torch.tasks.finetune import FinetuneEngine
+
+    backend = pmesh.maybe_initialize_multihost(device)
+    world = pmesh.world_size()
+    B = sizes["batch"]
+    train, evals, label2ans = synthetic_vqa(
+        seed, sizes["steps"] * B * world, sizes["eval"], sizes["images"],
+        sizes["answers"], sizes["text"], sizes["feat_dim"])
+    train.shard(pmesh.rank(), world)
+    kernels = port_kernels()
+    out: dict = {"backend": backend, "world": world}
+    params = None
+    for route in routes:
+        cfg = FinetuneConfig(task="vqa", batch_size=B, epochs=1,
+                             lr=1e-4, max_text_length=sizes["text"],
+                             grid_size=8, output=f"{out_dir}/{route}",
+                             seed=seed, serve_int8=True)
+        eng = FinetuneEngine(cfg, sizes["answers"],
+                             LxmertConfig(**(model_kw or {})),
+                             total_steps=sizes["steps"],
+                             train_attention=route, device=device)
+        if params is None:      # every route starts from the same weights
+            params = eng.init_params(seed)
+        state = eng.create_state(seed, params)
+        steps: list = []
+        last: dict = {}
+
+        def on_step(i, metrics):
+            loss = float(metrics["loss"])           # waits for the step
+            _sync(device)
+            now, seen = time.perf_counter(), launch_counts(kernels)
+            steps.append({"loss": loss,
+                          "grad_norm": float(metrics["grad_norm"]),
+                          "ms": (now - last["t"]) * 1e3,
+                          "launches": {k: n - last["n"][k]
+                                       for k, n in seen.items()},
+                          "comm": dict(pmesh.COMM)})
+            pmesh.reset_comm()
+            last.update(t=time.perf_counter(), n=launch_counts(kernels))
+
+        for k in kernels:
+            k.launches = 0
+        logger = RunLogger(cfg.output, cfg, enabled=pmesh.is_main(),
+                           use_tensorboard=False)
+        _sync(device)
+        pmesh.barrier()
+        pmesh.reset_comm()
+        last.update(t=time.perf_counter(), n=launch_counts(kernels))
+        score = finetune(eng, state, train, evals, cfg, logger, label2ans,
+                         on_step=on_step)
+        logger.close()
+        total = launch_counts(kernels)
+        trained = {k: sum(s["launches"][k] for s in steps) for k in total}
+        n_eval = -(-len(evals) // B)
+        mine = len(range(pmesh.rank(), n_eval, world))
+        out[route] = {"steps": steps, "score": score,
+                      "launches": total,
+                      "eval_launches": {k: total[k] - trained[k]
+                                        for k in total},
+                      "eval_forwards": mine + min(mine, 4),
+                      "peak_bytes": (torch.cuda.max_memory_allocated()
+                                     if torch.device(device).type == "cuda"
+                                     else 0)}
+        del eng, state
+    return out
+
+
+def tp_check(rank: int, seed: int, batch: dict, tasks: tuple,
+             centroids_seed: int, n_clusters: int, train_kw: dict,
+             model_kw: dict, device: str = "cuda") -> dict:
+    """tp = 2 pre-training on a ("data", "model") mesh of this process
+    group on the pallas_blhd route, dropout-free from init_params(seed) on
+    an injected-mask batch: per task the gathered loss and gradients
+    against the single-process step of rank 0 on the same device (a
+    one-rank mesh: no collective), then one timed train_step of each
+    task. Launches count the tensor-parallel work only."""
+    import numpy as np
+    import torch
+
+    from xlxmert_tpu_torch.core.config import LxmertConfig, TrainConfig
+    from xlxmert_tpu_torch.parallel import mesh as pmesh
+    from xlxmert_tpu_torch.tasks.pretrain import PretrainEngine
+
+    world = pmesh.world_size()
+    cfg = TrainConfig(**train_kw, mesh_shape=(world // 2, 2),
+                      mesh_axis_names=("data", "model"))
+    mcfg = LxmertConfig(**model_kw)
+    cents = torch.from_numpy(np.random.RandomState(centroids_seed).randn(
+        n_clusters, mcfg.visual_feat_dim).astype(np.float32)).to(device)
+    eng = PretrainEngine(cfg, mcfg, total_steps=100,
+                         train_attention="pallas_blhd", device=device)
+    state = eng.create_state(seed)
+    ref = None
+    if rank == 0:
+        ref = PretrainEngine(cfg, mcfg, total_steps=100,
+                             train_attention="pallas_blhd", device=device,
+                             mesh=pmesh.Mesh({"data": 1}))
+        ref_state = ref.create_state(seed)
+    kernels = port_kernels()
+    for k in kernels:
+        k.launches = 0
+    counted = {k.name: 0 for k in kernels}
+    placed = eng.place(batch)
+    out: dict = {"tasks": {}, "heads_per_rank":
+                           mcfg.num_attention_heads // 2}
+    for task in tasks:
+        before = launch_counts(kernels)
+        losses, grads = eng.loss_and_grads(state.model, placed, task, cents,
+                                           state.generator)
+        got = eng.tp.gather_dict({n: g for n, g in grads.items()
+                                  if g is not None})
+        _sync(device)
+        for k, n in launch_counts(kernels).items():
+            counted[k] += n - before[k]
+        if rank == 0:
+            rl, rg = ref.loss_and_grads(ref_state.model, ref.place(batch),
+                                        task, cents, ref_state.generator)
+            want = {n: g for n, g in rg.items() if g is not None}
+            dot = sum(float((got[n].double() * want[n].double()).sum())
+                      for n in want)
+            na = sum(float((got[n].double() ** 2).sum()) for n in want)
+            nb = sum(float((want[n].double() ** 2).sum()) for n in want)
+            lt, lr_ = float(losses["total_loss"]), float(rl["total_loss"])
+            out["tasks"][task] = {
+                "loss_tp": lt, "loss_single": lr_,
+                "loss_rel_diff": abs(lt - lr_) / max(abs(lr_), 1e-12),
+                "grad_cosine": dot / max(np.sqrt(na * nb), 1e-300),
+                "same_params": sorted(got) == sorted(want),
+                "with_gradient": len(want)}
+            del rg, want
+        del grads, got
+    if rank == 0:
+        del ref, ref_state
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    timed = []
+    for task in tasks:
+        before = launch_counts(kernels)
+        _sync(device)
+        pmesh.reset_comm()
+        t0 = time.perf_counter()
+        loss = float(eng.train_step(state, batch, task, cents)["total_loss"])
+        _sync(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        for k, n in launch_counts(kernels).items():
+            counted[k] += n - before[k]
+        timed.append({"task": task, "ms": ms, "loss": loss,
+                      "comm": dict(pmesh.COMM)})
+    out["steps"] = timed
+    out["launches"] = counted
+    return out
+
+
+def pipeline_check(rank: int, seed: int, model_kw: dict, batch: int,
+                   text: int, n_micro: int,
+                   device: str = "cuda") -> dict:
+    """The `l_layers` language layers of LxmertConfig(**model_kw) from
+    `seed` (every rank draws the same stack), pipelined over a ("data",
+    "pipe") mesh of the whole group at data 1, in fp32, forward and
+    backward (loss mean(h^2)) twice, the first a warm-up, against the
+    sequential stack on rank 0 on the same device. Returns the
+    comparison (rank 0), each rank's timings and its bubble."""
+    import numpy as np
+    import torch
+
+    from xlxmert_tpu_torch.core.config import LxmertConfig
+    from xlxmert_tpu_torch.models.lxmert import (
+        EXACT, TrainOptions, TransformerLayer, extend_attention_mask,
+    )
+    from xlxmert_tpu_torch.parallel import mesh as pmesh
+    from xlxmert_tpu_torch.parallel.pipeline import (
+        PIPE_STATS, pipeline_apply, place_pipeline,
+    )
+
+    cfg = LxmertConfig(**model_kw)
+    L = cfg.l_layers
+    rng = np.random.default_rng(seed)
+
+    def layer():
+        return TransformerLayer(cfg, EXACT, TrainOptions())
+
+    shapes = layer().state_dict()
+    stacked = {}
+    for k, v in shapes.items():
+        shape = (L,) + tuple(v.shape)
+        if k.endswith("bias"):
+            a = 0.02 * rng.standard_normal(shape, dtype=np.float32)
+        elif v.dim() == 1:
+            a = 1.0 + 0.1 * rng.standard_normal(shape, dtype=np.float32)
+        else:
+            a = cfg.initializer_range * rng.standard_normal(
+                shape, dtype=np.float32)
+        stacked[k] = torch.from_numpy(a)
+    x = torch.from_numpy(rng.standard_normal(
+        (batch, text, cfg.hidden_size), dtype=np.float32)).to(device)
+    mask = (rng.random((batch, text)) > 0.2).astype(np.float32)
+    mask[:, 0] = 1
+    bias = extend_attention_mask(torch.from_numpy(mask).to(device),
+                                 torch.float32)
+    world = pmesh.world_size()
+    mesh = pmesh.make_mesh((1, world), ("data", "pipe"))
+    stage = place_pipeline(stacked, layer, mesh, device=device).eval()
+
+    def layer_fn(m, carry):
+        h, b = carry
+        return m(h, b), b
+
+    out: dict = {"stage": mesh.index("pipe"),
+                           "layers_here": len(stage)}
+    times = []
+    for _ in range(2):
+        _sync(device)
+        t0 = time.perf_counter()
+        h, _ = pipeline_apply(layer_fn, stage, (x, bias), mesh=mesh,
+                              n_micro=n_micro)
+        loss = (h ** 2).mean()
+        grads = torch.autograd.grad(loss, list(stage.parameters()))
+        _sync(device)
+        times.append({"forward_ms": PIPE_STATS["wall_s"] * 1e3,
+                      "busy_ms": PIPE_STATS["busy_s"] * 1e3,
+                      "bubble": 1.0 - PIPE_STATS["busy_s"]
+                      / PIPE_STATS["wall_s"],
+                      "forward_backward_ms":
+                      (time.perf_counter() - t0) * 1e3})
+    out["timings"] = times
+    per = len(stage)
+    names = [n for n, _ in stage.named_parameters()]
+
+    def global_name(stage_index, name):
+        i, rest = name.split(".", 1)
+        return f"{stage_index * per + int(i)}.{rest}"
+
+    # rank 0 gathers every stage's gradients through the group, one
+    # tensor at a time (the stages hold different layers)
+    parts = {}
+    for s in range(world):
+        for name, g in zip(names, grads):
+            t = g if s == mesh.index("pipe") else torch.empty_like(g)
+            pmesh.broadcast(t, mesh.ranks("pipe")[s], mesh.group("pipe"))
+            if rank == 0:
+                parts[global_name(s, name)] = t
+    if rank == 0:
+        seq = [layer() for _ in range(L)]
+        for i, m in enumerate(seq):
+            m.load_state_dict({k: v[i] for k, v in stacked.items()})
+            m.to(device).eval()
+        hr = x
+        for m in seq:
+            hr = m(hr, bias)
+        named = [(f"{i}.{n}", p) for i, m in enumerate(seq)
+                 for n, p in m.named_parameters()]
+        ref = dict(zip((k for k, _ in named), torch.autograd.grad(
+            (hr ** 2).mean(), [p for _, p in named])))
+        dot = sum(float((parts[k].double() * ref[k].double()).sum())
+                  for k in ref)
+        na = sum(float((parts[k].double() ** 2).sum()) for k in ref)
+        nb = sum(float((ref[k].double() ** 2).sum()) for k in ref)
+        out["out_max_abs_err"] = float((h - hr).detach().abs().max())
+        out["out_max_abs"] = float(hr.detach().abs().max())
+        out["grad_cosine"] = dot / max(np.sqrt(na * nb), 1e-300)
+        # over the largest gradient: a key bias's gradient is 0 but for
+        # rounding, so its own largest value is no scale
+        out["grad_max_rel_err"] = max(
+            float((parts[k] - ref[k]).abs().max()) for k in ref) / max(
+            max(float(ref[k].abs().max()) for k in ref), 1e-30)
+        out["same_params"] = sorted(parts) == sorted(ref)
+    return out
+
+
+def table_check(rank: int, seed: int, n_images: int, batch: int,
+                feat_dim: int, device: str = "cuda", reps: int = 10) -> dict:
+    """A catalog of `n_images` random (8, 8, feat_dim) rows from `seed`
+    sharded over every rank on "data"; a lookup of `batch` random images
+    on each rank against the unsharded table's, bit for bit, and its
+    mean ms over `reps` lookups."""
+    import numpy as np
+    import torch
+
+    from xlxmert_tpu_torch.parallel import mesh as pmesh
+    from xlxmert_tpu_torch.serving.feature_cache import FeatureCache
+
+    rng = np.random.RandomState(seed)
+    rows = rng.randn(n_images, 8, 8, feat_dim).astype(np.float32)
+    idx = [str(i) for i in rng.randint(0, n_images, batch)]
+
+    class Reader:
+        def get(self, i):
+            return rows[int(i)]
+
+    ids = [str(i) for i in range(n_images)]
+    cache = FeatureCache.build(Reader(), ids, device=device,
+                               mesh=pmesh.make_mesh())
+    picks = torch.from_numpy(cache.indices(idx)).to(device)
+    got = FeatureCache.lookup(cache.table, picks, cache.shard)
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        FeatureCache.lookup(cache.table, picks, cache.shard)
+    _sync(device)
+    lookup_ms = (time.perf_counter() - t0) * 1e3 / reps
+    full = FeatureCache.build(Reader(), ids, device=device)
+    want = FeatureCache.lookup(full.table, torch.from_numpy(
+        full.indices(idx)).to(device))
+    return {"bit_equal": bool(torch.equal(got, want)),
+            "rows_here": int(cache.table.shape[0]), "lookup_ms": lookup_ms,
+            "unsharded_bytes": full.nbytes}
+
+
+def run_distributed_path(torch, args, kernels, log, device="cuda",
+                         sizes=None, model_kw=None, card="") -> dict:
+    """Phase (n): the distribution layer (parallel/) at full width
+    (LxmertConfig(), or `model_kw`; DIST_SIZES, or `sizes` for the CPU
+    test), every rank a process of its own spawned after the parent
+    built the kernels:
+      - a 2-rank launch with torchrun's environment (RANK, WORLD_SIZE,
+        LOCAL_RANK, MASTER_ADDR=localhost, ...) through cli/finetune:
+        the process group from maybe_initialize_multihost, each rank its
+        shard of an in-memory VQA set at `batch` a rank, finetune() on
+        both training attention routes with the int8 evaluation merged
+        over the ranks (every rank calibrates on its own batches); then,
+        in the same group, tp = 2 pre-training per task (pallas_blhd,
+        H/2 heads a rank, fp32, dropout-free on injected masks) held to
+        the single-process step on the same card (STEP_BARS), and timed
+        train_steps; and the sharded feature table's lookup, bit-equal
+        to the unsharded one;
+      - a 3-rank GPipe of the language layers (S = 3, M = `micro`),
+        forward and backward in fp32, held to the sequential stack
+        (PIPE_RTOL, PIPE_GRAD_COSINE, PIPE_GRAD_REL), with its measured
+        bubble beside (S - 1) / (M + S - 1).
+    Launches are counted in each rank, reported back and summed. The
+    ranks share one card: examples/s in all is not multi-card
+    scaling."""
+    import tempfile
+
+    import numpy as np
+
+    from xlxmert_tpu_torch.core.config import LxmertConfig
+    from xlxmert_tpu_torch.parallel.launch import spawn
+
+    sz = dict(DIST_SIZES, **(sizes or {}))
+    mkw = dict(model_kw or {})
+    mcfg = LxmertConfig(**mkw)
+    world = sz["ranks"]
+    for k in kernels:
+        k.launches = 0
+    t_all = time.time()
+    # the pre-training check's batch: injected masks on random captions
+    rng = np.random.RandomState(args.seed + 14)
+    B, T, V = sz["pt_batch"], sz["text"], 64
+    word = rng.randint(5, min(mcfg.vocab_size, 200), (B, T)).astype(np.int32)
+    word[:, 0] = min(101, mcfg.vocab_size - 1)
+    word[0, T - 3:] = 0
+    pt_batch = host_masked({
+        "word_id": word,
+        "other_word_id": rng.randint(5, min(mcfg.vocab_size, 200), (B, T)
+                                     ).astype(np.int32),
+        "matched_label": rng.randint(0, 2, B).astype(np.int32),
+        "cluster_id": rng.randint(0, mcfg.num_clusters, (B, V)
+                                  ).astype(np.int32)}, args.seed,
+        mcfg.vocab_size)
+    pt_kw = dict(batch_size=B, max_text_length=T, grid_size=8, lr=PT_LR,
+                 clustering=True, num_clusters=mcfg.num_clusters,
+                 feat_dim=mcfg.visual_feat_dim, visual_losses="obj",
+                 vis_mask_predict=True, mixed_precision=False)
+    check_kw = dict(mkw, hidden_dropout_prob=0.0,
+                    attention_probs_dropout_prob=0.0)
+    ft_sizes = {k: sz[k] for k in ("batch", "steps", "eval", "images",
+                                   "answers", "text", "feat_dim")}
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.time()
+        calls = [("finetune_launch", dict(
+                     routes=DIST_ROUTES, seed=args.seed, sizes=ft_sizes,
+                     out_dir=out_dir, device=device, model_kw=mkw)),
+                 ("tp_check", dict(
+                     seed=args.seed, batch=pt_batch, tasks=PT_TASKS,
+                     centroids_seed=args.seed + 15,
+                     n_clusters=mcfg.num_clusters, train_kw=pt_kw,
+                     model_kw=check_kw, device=device)),
+                 ("table_check", dict(
+                     seed=args.seed + 16, n_images=sz["table_images"],
+                     batch=sz["table_batch"], feat_dim=sz["feat_dim"],
+                     device=device))]
+        ranks = spawn(rank_cases, world, (calls,), timeout=sz["timeout"],
+                      init="env", threads=2, device=device)
+        launch_s = time.time() - t0
+        t0 = time.time()
+        pipe = spawn(pipeline_check, sz["stages"], (
+            args.seed + 17, dict(mkw), sz["pipe_batch"], T, sz["micro"],
+            device), timeout=sz["timeout"], threads=2, device=device)
+        pipe_s = time.time() - t0
+    # every rank's counts of every kernel, summed
+    launches = dict.fromkeys(ranks[0][0][DIST_ROUTES[0]]["launches"], 0)
+    out = {"ranks": world, "backend": ranks[0][0]["backend"],
+           "launch_s": launch_s, "pipeline_s": pipe_s, "routes": {}}
+    log(f"  {world} ranks on one card, backend {out['backend']} ({card}); "
+        f"the launch took {launch_s:.1f}s, the pipeline {pipe_s:.1f}s")
+    # fine-tuning through cli/finetune on each route
+    for route in DIST_ROUTES:
+        per_rank = [r[0][route] for r in ranks]
+        for i, rr in enumerate(per_rank):
+            for k, n in rr["launches"].items():
+                launches[k] += n
+            for j, st in enumerate(rr["steps"]):
+                if not math.isfinite(st["loss"]):
+                    fail(f"(n) finetune {route} rank {i} step {j}: loss "
+                         f"{st['loss']}")
+                if device == "cuda":
+                    check_launches(f"finetune {route}", st["launches"], 1)
+            if device == "cuda":
+                check_launches("finetune serve_int8", rr["eval_launches"],
+                               rr["eval_forwards"])
+        steps = per_rank[0]["steps"]
+        losses = [[st["loss"] for st in rr["steps"]] for rr in per_rank]
+        if any(x != losses[0] for x in losses):
+            fail(f"(n) finetune {route}: the ranks logged different "
+                 f"global losses {losses}")
+        score = per_rank[0]["score"]
+        if not all(rr["score"] == score for rr in per_rank):
+            fail(f"(n) finetune {route}: the merged scores differ")
+        step_ms = _after_first([max(rr["steps"][j]["ms"] for rr in per_rank)
+                                for j in range(len(steps))])
+        comm = per_rank[0]["steps"][1:] or per_rank[0]["steps"]
+        ar_bytes = sum(c["comm"]["bytes"] for c in comm) / len(comm)
+        ar_ms = 1e3 * sum(c["comm"]["seconds"] for c in comm) / len(comm)
+        r = {"steps": len(steps), "losses": losses[0],
+             "step_ms": step_ms,
+             "examples_per_s_rank": sz["batch"] * 1e3 / step_ms,
+             "examples_per_s_all": world * sz["batch"] * 1e3 / step_ms,
+             "allreduce_bytes_per_step": ar_bytes,
+             "allreduce_ms_per_step": ar_ms,
+             "score_int8_merged": score,
+             "eval_forwards_per_rank": [rr["eval_forwards"]
+                                        for rr in per_rank],
+             "peak_bytes_per_rank": [rr["peak_bytes"] for rr in per_rank]}
+        out["routes"][route] = r
+        log(f"  cli/finetune {route}: {len(steps)} steps of {sz['batch']} "
+            f"a rank, losses " + " ".join(f"{x:.4f}" for x in losses[0])
+            + f"; step {step_ms:.1f} ms after the first, "
+            f"{r['examples_per_s_rank']:.1f} examples/s a rank, "
+            f"{r['examples_per_s_all']:.1f} in all (the ranks share one "
+            f"card: no multi-card scaling); all-reduce "
+            f"{ar_bytes / 2**20:.1f} MiB and {ar_ms:.1f} ms a step; int8 "
+            f"evaluation merged over the ranks, score {score:.4f}")
+    # tensor parallelism
+    tp = [r[1] for r in ranks]
+    rel_bar, cos_bar = STEP_BARS["float32"]
+    for i, tr in enumerate(tp):
+        for k, n in tr["launches"].items():
+            launches[k] += n
+        n_calls = 2 * len(PT_TASKS)        # the check, then a step
+        if device == "cuda":
+            check_launches("pretrain pallas_blhd", tr["launches"], n_calls)
+    out["tp"] = {"heads_per_rank": tp[0]["heads_per_rank"], "tasks": {}}
+    for task, c in tp[0]["tasks"].items():
+        ok = (math.isfinite(c["loss_tp"]) and c["loss_rel_diff"] < rel_bar
+              and c["grad_cosine"] > cos_bar and c["same_params"])
+        log(f"  tp=2 pre-training {task} (B={B}, fp32, {tp[0]['heads_per_rank']}"
+            f" heads a rank): loss {c['loss_tp']:.6f} vs one process "
+            f"{c['loss_single']:.6f} (relative {c['loss_rel_diff']:.2e}, "
+            f"bar {rel_bar:g}), gradient cosine {c['grad_cosine']:.7f} "
+            f"(bar {cos_bar}), {c['with_gradient']} parameters")
+        if not ok:
+            fail(f"(n) tp=2 {task}: {c}")
+        out["tp"]["tasks"][task] = c
+    tsteps = tp[0]["steps"]
+    out["tp"]["step_ms"] = {s["task"]: max(t["steps"][j]["ms"] for t in tp)
+                            for j, s in enumerate(tsteps)}
+    out["tp"]["allreduce_bytes_per_step"] = {
+        s["task"]: s["comm"]["bytes"] for s in tsteps}
+    out["tp"]["allreduce_ms_per_step"] = {
+        s["task"]: 1e3 * s["comm"]["seconds"] for s in tsteps}
+    log("  tp=2 train_step ms (first step of each task, warm after the "
+        "check): " + ", ".join(f"{t} {v:.1f} ({out['tp']['allreduce_bytes_per_step'][t] / 2**20:.1f} MiB all-reduced in "
+                               f"{out['tp']['allreduce_ms_per_step'][t]:.1f} ms)"
+                               for t, v in out["tp"]["step_ms"].items()))
+    # the sharded feature table
+    tables = [r[2] for r in ranks]
+    if not all(t["bit_equal"] for t in tables):
+        fail("(n) the sharded feature table's lookup differs from the "
+             "unsharded one")
+    out["table"] = {"rows_per_rank": [t["rows_here"] for t in tables],
+                    "lookup_ms": max(t["lookup_ms"] for t in tables),
+                    "unsharded_bytes": tables[0]["unsharded_bytes"]}
+    log(f"  feature table: {sz['table_images']} images over {world} ranks "
+        f"({out['table']['rows_per_rank']} rows), a lookup of "
+        f"{sz['table_batch']} bit-equal to the unsharded table, "
+        f"{out['table']['lookup_ms']:.2f} ms")
+    # the pipeline
+    p0 = pipe[0]
+    S, M = sz["stages"], sz["micro"]
+    err_bar = PIPE_RTOL + PIPE_RTOL * p0["out_max_abs"]
+    if not (p0["out_max_abs_err"] <= err_bar and p0["same_params"]
+            and p0["grad_cosine"] > PIPE_GRAD_COSINE
+            and p0["grad_max_rel_err"] <= PIPE_GRAD_REL):
+        fail(f"(n) pipeline against the sequential stack: {p0}")
+    bubbles = [q["timings"][-1]["bubble"] for q in pipe]
+    out["pipeline"] = {
+        "stages": S, "micro": M, "layers_per_stage":
+        [q["layers_here"] for q in pipe],
+        "out_max_abs_err": p0["out_max_abs_err"],
+        "grad_cosine": p0["grad_cosine"],
+        "grad_max_rel_err": p0["grad_max_rel_err"],
+        "forward_ms": max(q["timings"][-1]["forward_ms"] for q in pipe),
+        "forward_backward_ms": max(q["timings"][-1]["forward_backward_ms"]
+                                   for q in pipe),
+        "bubble_per_stage": bubbles,
+        "bubble_mean": sum(bubbles) / len(bubbles),
+        "bubble_predicted": (S - 1) / (M + S - 1)}
+    pl = out["pipeline"]
+    log(f"  pipeline: {mcfg.l_layers} language layers over {S} stages, "
+        f"M={M}, B={sz['pipe_batch']}, fp32: output max |d| "
+        f"{pl['out_max_abs_err']:.2e}, gradient cosine "
+        f"{pl['grad_cosine']:.7f} (max rel {pl['grad_max_rel_err']:.2e}); "
+        f"forward {pl['forward_ms']:.1f} ms, forward+backward "
+        f"{pl['forward_backward_ms']:.1f} ms; bubble measured "
+        + ", ".join(f"{b:.3f}" for b in bubbles)
+        + f" (mean {pl['bubble_mean']:.3f}) against (S-1)/(M+S-1) = "
+        f"{pl['bubble_predicted']:.3f}, the stages sharing one card")
+    out["launches"] = launches
+    out["wall_s"] = time.time() - t_all
+    return out
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     try:
@@ -4275,9 +4954,7 @@ def main(argv=None) -> int:
     card = smi.stdout.strip().splitlines()[0]
     log(f"(a) device: {device_name} x{count}; torch {torch.__version__} "
         f"CUDA {torch.version.cuda}")
-    kernels = [attention.KERNEL, int8_matmul.KERNEL, ffn.KERNEL,
-               attention.FUSED_MHA_KERNEL, fused_block.KERNEL,
-               attention.TRAIN_KERNEL, attention.HBATCH_KERNEL]
+    kernels = port_kernels()
     build_s = _build.build_all(kernels, verbose=True)
     log(f"    kernels built in {build_s:.1f}s (parallel nvcc)")
     for k in kernels:
@@ -4304,6 +4981,18 @@ def main(argv=None) -> int:
             "mha_blhd_train": check_train_attention(torch, F, attention, cfg,
                                                     rng, log),
             "mha_hbatch": check_hbatch(torch, F, attention, cfg, rng, log)}
+    # (n)'s tensor-parallel steps: H/2 heads a rank, with a generator of
+    # their own (the cases above draw as they did before these existed)
+    tp_rng = torch.Generator(device="cuda").manual_seed(args.seed + 2)
+    rows["mha_blhd_train"] += check_train_attention(
+        torch, F, attention, cfg, tp_rng, log,
+        cases=tp_train_attention_cases(cfg))
+    for kind in TP_KINDS:
+        n = sum(r["uses"].get(kind, 0) for r in rows["mha_blhd_train"])
+        want = PER_FORWARD["pretrain pallas_blhd"]["mha_blhd_train"]
+        if n != want:
+            fail(f"mha_blhd_train: the kernel phase covers {n} launches of "
+                 f"a {kind} step, the path makes {want}")
     log("  C1: fused_mha's gradients on the card against the CPU's; the "
         "forward-only kernels refuse a backward")
     grad_rows = check_fused_mha_grad(torch, attention, ffn, cfg, rng, log)
@@ -4332,7 +5021,8 @@ def main(argv=None) -> int:
     times = {}
     for name, kernel_rows in rows.items():
         launches_per_kind(name, kernel_rows)
-        times[name] = per_forward(kernel_rows, mix, KINDS[name])
+        times[name] = per_forward(kernel_rows, mix, KINDS[name] + (
+            TP_KINDS if name == "mha_blhd_train" else []))
         log(f"  {name} per forward (ms):")
         for kind, t in times[name].items():
             lib = "none" if t["library_ms"] is None else \
@@ -4427,9 +5117,19 @@ def main(argv=None) -> int:
     fid = run_fid_path(torch, args, kernels, log, card=card)
     fid["wall_s"] = time.time() - t0
     log(f"  phase (m) took {fid['wall_s']:.1f}s")
+    torch.cuda.empty_cache()
+    dz = DIST_SIZES
+    log(f"(n) distributed training: {dz['ranks']} ranks through "
+        f"cli/finetune (B={dz['batch']} a rank, both routes, int8 eval "
+        f"merged), tp=2 pre-training per task, the sharded feature table; "
+        f"a {dz['stages']}-stage pipeline of the language layers "
+        f"(M={dz['micro']}); full width, random weights ({card})")
+    dist = run_distributed_path(torch, args, kernels, log, card=card)
+    log(f"  phase (n) took {dist['wall_s']:.1f}s")
     paths = {"int8": path, **bf16_paths, "int8+fused_block": fused_path,
              "finetune": ft, "layout": layout, "pretrain": pt,
-             "sample": sample, "gan": gan, "factory": factory, "fid": fid}
+             "sample": sample, "gan": gan, "factory": factory, "fid": fid,
+             "distributed": dist}
 
     # (d) the kernels line and the device line: times per serving forward
     # drawn from VQA_LENGTH_MIX (mha_blhd_train: per VQA training step);

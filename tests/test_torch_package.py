@@ -13,9 +13,12 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "xlxmert_tpu")
 
 
 def _port_scripts():
-    """chip_smoke.py and the port's scripts (scripts/*_torch*.py)."""
+    """chip_smoke.py, the rank bodies of the multi-process tests (a
+    spawned rank re-imports them) and the port's scripts
+    (scripts/*_torch*.py)."""
     scripts = os.path.join(ROOT, "scripts")
-    return [os.path.join(ROOT, "chip_smoke.py")] + [
+    return [os.path.join(ROOT, "chip_smoke.py"),
+            os.path.join(ROOT, "tests", "torch_rank_bodies.py")] + [
         os.path.join(scripts, n) for n in sorted(os.listdir(scripts))
         if "_torch" in n and n.endswith(".py")]
 
@@ -45,6 +48,10 @@ def test_port_imports_no_jax_flax_or_the_jax_package():
     assert len(files) > 15
     assert os.path.join(ROOT, "scripts", "drive_attention_layout_torch.py") \
         in files
+    parallel = os.path.join(ROOT, "xlxmert_tpu_torch", "parallel")
+    assert {os.path.join(parallel, f"{m}.py") for m in (
+        "__init__", "mesh", "sharding", "pipeline", "launch")} \
+        <= set(files)
     bad = {(os.path.relpath(f, ROOT), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN}
     assert not bad, sorted(bad)

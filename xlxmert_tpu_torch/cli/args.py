@@ -130,6 +130,14 @@ def base_parser() -> argparse.ArgumentParser:
                    "torch.profiler into <output>/profile, a Chrome trace "
                    "for TensorBoard/Perfetto; fine-tuning accepts it "
                    "without effect")
+    p.add_argument("--mesh_shape", default=None,
+                   type=lambda v: tuple(int(x) for x in v.split(",")),
+                   help="the ranks' mesh, e.g. 2,2 (default: every rank "
+                   "on the first axis; parallel/mesh.make_mesh)")
+    p.add_argument("--mesh_axis_names", default=None,
+                   type=lambda v: tuple(v.split(",")),
+                   help="data | data,model (pre-training's tensor "
+                   "parallelism) | data,pipe")
     p.add_argument("--numWorkers", dest="num_workers", type=int, default=4)
     p.add_argument("--tqdm", action="store_true")
     # host paths (new, replaces hardcoded ../datasets routing)

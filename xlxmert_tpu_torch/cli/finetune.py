@@ -13,6 +13,13 @@ every epoch trains, evaluates (`evaluate()`, through the int8 engine
 with --serve_int8) and writes LAST.msgpack, and BEST.msgpack when the
 score improves, in the JAX package's checkpoint format. With --test (or
 --test_only) it writes the leaderboard dump of the split instead.
+
+Several processes (torchrun's environment, e.g. `torchrun
+--nproc_per_node 2 -m xlxmert_tpu_torch.cli.vqa ...`): the process group
+starts first, each rank trains on its `shard` of the training data
+(--batch_size a rank) with the gradients averaged over the ranks, the
+evaluation stream is split round-robin over the ranks and merged
+through <output>/eval_shards, and rank 0 alone logs and writes.
 """
 from __future__ import annotations
 
@@ -24,11 +31,20 @@ from typing import Callable, Optional
 def evaluate(eng, model, eval_ds, cfg, label2ans=None, test_mode=False,
              dump_path: Optional[str] = None):
     """Predict over `eval_ds` with `model`; the evaluator's score, or
-    None after writing the dump to `dump_path`."""
+    None after writing the dump to `dump_path` (rank 0). Several ranks
+    take the batches round-robin and merge their answers."""
+    from xlxmert_tpu_torch.parallel import mesh as pmesh
+
     batches = eval_ds.batches(cfg.batch_size, test=test_mode)
-    quesid2ans = eng.predict(model, batches, label2ans, int8=cfg.serve_int8)
+    world, rank = pmesh.world_size(), pmesh.rank()
+    if world > 1:
+        batches = (b for i, b in enumerate(batches) if i % world == rank)
+    quesid2ans = eng.predict(model, batches, label2ans, int8=cfg.serve_int8,
+                             shard_dir=str(Path(cfg.output) / "eval_shards"))
     if dump_path:
-        eval_ds.evaluator.dump_result(quesid2ans, dump_path)
+        if pmesh.is_main():
+            eval_ds.evaluator.dump_result(quesid2ans, dump_path)
+        pmesh.barrier()
         return None
     return eval_ds.evaluator.evaluate(quesid2ans)
 
@@ -39,13 +55,18 @@ def finetune(eng, state, train_ds, eval_ds, cfg, logger, label2ans=None,
     shuffled full batches through `eng.train_step` (update_freq
     accumulation gated by `should_update`), an evaluation, LAST.msgpack
     and BEST.msgpack under cfg.output. `on_step(i, metrics)` is called
-    after every step. Returns the best validation score."""
-    from xlxmert_tpu_torch.core.checkpoint import save_pytree
+    after every step. Returns the best validation score. With several
+    ranks `train_ds` is this rank's shard, and every rank runs the
+    steps of the smallest shard."""
+    import itertools
+
+    from xlxmert_tpu_torch.core.checkpoint import save_on_main
     from xlxmert_tpu_torch.core.metrics import LossMeter
     from xlxmert_tpu_torch.data.io import PrefetchLoader
+    from xlxmert_tpu_torch.parallel.mesh import agree_min
     from xlxmert_tpu_torch.tasks.finetune import should_update
 
-    steps_per_epoch = max(len(train_ds) // cfg.batch_size, 1)
+    steps_per_epoch = max(agree_min(len(train_ds)) // cfg.batch_size, 1)
     best = -1.0
     for epoch in range(cfg.epochs):
         t0 = time.time()
@@ -53,7 +74,8 @@ def finetune(eng, state, train_ds, eval_ds, cfg, logger, label2ans=None,
         loader = PrefetchLoader(
             lambda: train_ds.batches(cfg.batch_size, shuffle=True,
                                      seed=cfg.seed + epoch, drop_last=True))
-        for i, batch in enumerate(loader):
+        for i, batch in enumerate(itertools.islice(loader,
+                                                   steps_per_epoch)):
             metrics = eng.train_step(
                 state, batch,
                 should_update(i, steps_per_epoch, cfg.update_freq))
@@ -67,10 +89,10 @@ def finetune(eng, state, train_ds, eval_ds, cfg, logger, label2ans=None,
         logger.scalars((epoch + 1) * steps_per_epoch,
                        {"valid/score": score, "train/loss": meter.val})
         params = state.params()
-        save_pytree(params, str(Path(cfg.output) / "LAST.msgpack"))
+        save_on_main(params, str(Path(cfg.output) / "LAST.msgpack"))
         if score > best:
             best = score
-            save_pytree(params, str(Path(cfg.output) / "BEST.msgpack"))
+            save_on_main(params, str(Path(cfg.output) / "BEST.msgpack"))
     logger.info(f"best valid: {best:.4f}")
     return best
 
@@ -93,11 +115,13 @@ def run(task: str, argv=None):
         GQADataset, NLVR2Dataset, VQADataset,
     )
     from xlxmert_tpu_torch.data.tokenization import Tokenizer
+    from xlxmert_tpu_torch.parallel import mesh as pmesh
     from xlxmert_tpu_torch.tasks.finetune import FinetuneEngine
     from xlxmert_tpu_torch.utils.device import resolve_device
 
+    pmesh.maybe_initialize_multihost(ns.device)
     resolve_device(ns.device)
-    logger = RunLogger(cfg.output, cfg)
+    logger = RunLogger(cfg.output, cfg, enabled=pmesh.is_main())
     tokenizer = Tokenizer(ns.vocab)
     root = Path(ns.data_root)
     ds_cls = {"vqa": VQADataset, "gqa": GQADataset,
@@ -109,13 +133,14 @@ def run(task: str, argv=None):
         train_ds = ds_cls.from_files(root, cfg.train, tokenizer,
                                      encoder=cfg.encoder,
                                      topk=cfg.train_topk, **kw)
+        train_ds.shard(pmesh.rank(), pmesh.world_size())
     eval_ds = ds_cls.from_files(root, cfg.test or cfg.valid, tokenizer,
                                 encoder=cfg.encoder, topk=cfg.valid_topk,
                                 **kw)
     num_answers = 2 if task == "nlvr2" else (train_ds or eval_ds).num_answers
     label2ans = None if task == "nlvr2" else (train_ds or eval_ds).label2ans
 
-    steps_per_epoch = max((len(train_ds) if train_ds else 0)
+    steps_per_epoch = max(pmesh.agree_min(len(train_ds) if train_ds else 0)
                           // cfg.batch_size, 1)
     eng = FinetuneEngine(cfg, num_answers, model_cfg=make_model_config(ns),
                          total_steps=max(steps_per_epoch * cfg.epochs, 1),

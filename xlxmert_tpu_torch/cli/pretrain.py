@@ -19,6 +19,13 @@ moments and counts, the schedule position, the step) from the same host
 snapshot; a --load of such a file resumes exactly, whichever package
 wrote it. --profile N traces N steps of the first epoch with
 torch.profiler into <output>/profile.
+
+Several processes (torchrun's environment): the process group starts
+first, the ranks lay out on cfg.mesh_shape over cfg.mesh_axis_names
+(all on "data" by default; ("data", "model") adds tensor parallelism),
+each data index trains on its `shard` of the corpus (--batchSize a data
+rank), and rank 0 alone logs, traces and writes (the checkpoints are
+gathered first, so their layout is the single process's).
 """
 from __future__ import annotations
 
@@ -81,18 +88,22 @@ def pretrain(eng, state, train_ds, valid_ds, cfg, centroids, logger,
     from xlxmert_tpu_torch.core.checkpoint import (
         AsyncCheckpointer, epoch_ckpt_name, train_state_to_tree,
     )
+    import itertools
+
     from xlxmert_tpu_torch.core.metrics import LossMeter
     from xlxmert_tpu_torch.data.io import PrefetchLoader
+    from xlxmert_tpu_torch.parallel import mesh as pmesh
     from xlxmert_tpu_torch.utils.profiling import annotate, trace
 
-    steps_per_epoch = max(len(train_ds) // cfg.batch_size, 1)
+    steps_per_epoch = max(pmesh.agree_min(len(train_ds)) // cfg.batch_size,
+                          1)
     global_step = start_epoch * steps_per_epoch
     summary: Dict[str, float] = {}
     ckpt = AsyncCheckpointer()
     profile_dir = str(Path(cfg.output) / "profile")
     # after the first steps' warm-up, clamped so short epochs still trace
     profile_start = (min(5, max(steps_per_epoch - profile, 0))
-                     if profile and not cfg.dry else -1)
+                     if profile and not cfg.dry and pmesh.is_main() else -1)
     tracing = contextlib.ExitStack()
     try:
         for epoch in range(start_epoch, cfg.epochs):
@@ -102,7 +113,8 @@ def pretrain(eng, state, train_ds, valid_ds, cfg, centroids, logger,
                                          seed=cfg.seed + epoch,
                                          drop_last=True))
             if not cfg.dry:
-                for i, batch in enumerate(loader):
+                for i, batch in enumerate(itertools.islice(
+                        loader, steps_per_epoch)):
                     if epoch == start_epoch and i == profile_start:
                         logger.info(f"profiler trace of {profile} steps -> "
                                     f"{profile_dir}")
@@ -133,19 +145,24 @@ def pretrain(eng, state, train_ds, valid_ds, cfg, centroids, logger,
             logger.info(f"epoch {epoch}: {summary} "
                         f"({time.time() - t0:.0f}s)")
             params_path = str(Path(cfg.output) / epoch_ckpt_name(epoch + 1))
+            # gathered on every rank (collectives), written by rank 0
             if cfg.save_full_state:
                 # one host snapshot, both files
-                ckpt.save_full(
-                    train_state_to_tree(state, eng.total_steps),
-                    str(Path(cfg.output) / f"Epoch{epoch + 1:02d}_FULL"
-                        ".msgpack"), params_path)
+                full = train_state_to_tree(state, eng.total_steps)
+                if pmesh.is_main():
+                    ckpt.save_full(full, str(Path(cfg.output) / f"Epoch"
+                                             f"{epoch + 1:02d}_FULL.msgpack"),
+                                   params_path)
             else:
-                ckpt.save(state.params(), params_path)
+                params = state.params()
+                if pmesh.is_main():
+                    ckpt.save(params, params_path)
     finally:
         tracing.close()
         # a queued save survives an exception: the epoch's checkpoint is
         # not lost to a writer thread killed mid-write
         ckpt.wait()
+    pmesh.barrier()
     return summary
 
 
@@ -198,12 +215,15 @@ def main(argv=None):
     from xlxmert_tpu_torch.data.datasets import PretrainDataset
     from xlxmert_tpu_torch.data.io import ClusterMap, load_json
     from xlxmert_tpu_torch.data.tokenization import Tokenizer
+    from xlxmert_tpu_torch.parallel import mesh as pmesh
     from xlxmert_tpu_torch.tasks.pretrain import PretrainEngine
     from xlxmert_tpu_torch.utils.device import resolve_device
     from xlxmert_tpu_torch.vocab.kmeans import centroid_filename
 
+    pmesh.maybe_initialize_multihost(ns.device)
     device = resolve_device(ns.device)
-    logger = RunLogger(cfg.output, cfg)
+    mesh = pmesh.make_mesh(cfg.mesh_shape, cfg.mesh_axis_names)
+    logger = RunLogger(cfg.output, cfg, enabled=pmesh.is_main())
     model_cfg = make_model_config(
         ns, num_clusters=cfg.num_clusters if cfg.clustering else 0)
     tokenizer = Tokenizer(ns.vocab)
@@ -270,10 +290,14 @@ def main(argv=None):
                                topk=cfg.train_topk, **ds_kw)
     valid_ds = PretrainDataset(load_corpus(cfg.valid), tokenizer, clusters,
                                topk=cfg.valid_topk, **ds_kw)
-    steps_per_epoch = max(len(train_ds) // cfg.batch_size, 1)
+    # the ranks of one model group train on the same data
+    train_ds.shard(mesh.index("data"), mesh.size("data"))
+    steps_per_epoch = max(pmesh.agree_min(len(train_ds)) // cfg.batch_size,
+                          1)
     total_steps = steps_per_epoch * cfg.epochs
     eng = PretrainEngine(cfg, model_cfg=model_cfg, total_steps=total_steps,
-                         train_attention=ns.train_attention, device=device)
+                         train_attention=ns.train_attention, device=device,
+                         mesh=mesh)
     logger.info(f"{len(train_ds)} examples, {steps_per_epoch} steps/epoch, "
                 f"tasks {cfg.mask_modalities}, on {device}")
     state = eng.create_state(cfg.seed)

@@ -18,6 +18,12 @@ iterable of batches: every batch trains one D-step and one G-step
 and, with --save_full_state, G_{epoch}_FULL.msgpack in the JAX CLI's
 layout (`serialization.to_state_dict(GanState)` plus `epoch`), which
 --resume reads, whichever package wrote it.
+
+Several processes (torchrun's environment): the process group starts
+first, rank r trains on paths[r::world] (--batch_size a rank) with the
+gradients averaged and the "batch" SPADE statistics taken over the
+ranks, every rank runs the pairs of the smallest shard, and rank 0
+alone logs and writes.
 """
 from __future__ import annotations
 
@@ -153,7 +159,8 @@ def train(eng, state, centroids: np.ndarray,
           batches: Callable[[int], Iterable[Dict]], logger,
           log_step: int = 100, save_full_state: bool = False,
           start_epoch: int = 0, step: int = 0,
-          on_pair: Optional[Callable] = None) -> Dict:
+          on_pair: Optional[Callable] = None,
+          pairs_per_epoch: Optional[int] = None) -> Dict:
     """The epoch loop: for each epoch in [start_epoch, cfg.epochs), the
     host batches of `batches(epoch)` (numpy dicts: "image", "code",
     "cluster_id"; loaded on a prefetch thread) each train one D-step and
@@ -161,11 +168,14 @@ def train(eng, state, centroids: np.ndarray,
     as the JAX CLI counts); then G_{epoch}.msgpack (and with
     save_full_state G_{epoch}_FULL.msgpack) is written under
     cfg.output. `on_pair(step, d_metrics, g_metrics)` is called after
-    every pair. Returns {"state", "step", "pairs", "last": the last
-    pair's metrics as floats}."""
+    every pair; `pairs_per_epoch` caps an epoch's pairs (every rank of a
+    multi-process run takes as many). Returns {"state", "step", "pairs",
+    "last": the last pair's metrics as floats}."""
+    import itertools
+
     import torch
 
-    from xlxmert_tpu_torch.core.checkpoint import save_pytree
+    from xlxmert_tpu_torch.core.checkpoint import save_on_main
     from xlxmert_tpu_torch.core.metrics import LossMeter
     from xlxmert_tpu_torch.data.io import PrefetchLoader
     from xlxmert_tpu_torch.models.gan import variables_of
@@ -179,7 +189,7 @@ def train(eng, state, centroids: np.ndarray,
     for epoch in range(start_epoch, cfg.epochs):
         t0 = time.time()
         loader = PrefetchLoader(lambda: batches(epoch))
-        for host in loader:
+        for host in itertools.islice(loader, pairs_per_epoch):
             batch = eng.place(host)
             state, dm = eng.d_step(state, batch, table)
             state, gm = eng.g_step(state, batch, table)
@@ -196,15 +206,15 @@ def train(eng, state, centroids: np.ndarray,
                     f"D {meters['d'].val:.4f} ({time.time() - t0:.0f}s)")
         # the generator's params, sn [, batch_stats]: what the JAX CLI
         # writes and cli/sample_images --generator reads
-        save_pytree(variables_of(state.G),
-                    str(Path(cfg.output) / f"G_{epoch}.msgpack"))
+        save_on_main(variables_of(state.G),
+                     str(Path(cfg.output) / f"G_{epoch}.msgpack"))
         if save_full_state:
             full = state_to_tree(state)
             # epoch lives inside the tree: a renamed or copied
             # checkpoint still resumes at the right epoch
             full["epoch"] = np.asarray(epoch, np.int32)
-            save_pytree(full, str(Path(cfg.output)
-                                  / f"G_{epoch}_FULL.msgpack"))
+            save_on_main(full, str(Path(cfg.output)
+                                   / f"G_{epoch}_FULL.msgpack"))
     return {"state": state, "step": step, "pairs": pairs, "last": last}
 
 
@@ -213,14 +223,16 @@ def main(argv=None) -> Dict:
 
     from xlxmert_tpu_torch.core.metrics import RunLogger
     from xlxmert_tpu_torch.data.io import ClusterMap
+    from xlxmert_tpu_torch.parallel import mesh as pmesh
     from xlxmert_tpu_torch.tasks.train_generator import GanEngine
     from xlxmert_tpu_torch.utils.device import resolve_device
 
+    pmesh.maybe_initialize_multihost(ns.device)
     resolve_device(ns.device)  # refuse before the run directory is made
 
     centroids = np.load(ns.centroids).astype(np.float32)
     cfg = gan_config(ns, int(centroids.shape[0]))
-    logger = RunLogger(cfg.output, cfg)
+    logger = RunLogger(cfg.output, cfg, enabled=pmesh.is_main())
     perceptual_vars = None
     if ns.classifier_weights:
         from xlxmert_tpu_torch.core.checkpoint import load_any_checkpoint
@@ -241,6 +253,8 @@ def main(argv=None) -> Dict:
     if ns.train_topk > 0:
         paths = paths[:ns.train_topk]
     logger.info(f"{len(paths)} images; device {eng.device}")
+    paths = paths[pmesh.rank()::pmesh.world_size()]
+    pairs = pmesh.agree_min(len(paths) // cfg.batch_size)
 
     state = eng.create_state(cfg.seed, centroids)
     start_epoch, step = 0, 0
@@ -255,7 +269,8 @@ def main(argv=None) -> Dict:
                          shuffle_seed=cfg.seed + epoch),
                      logger, log_step=ns.log_step,
                      save_full_state=ns.save_full_state,
-                     start_epoch=start_epoch, step=step)
+                     start_epoch=start_epoch, step=step,
+                     pairs_per_epoch=pairs)
     finally:
         logger.close()
 

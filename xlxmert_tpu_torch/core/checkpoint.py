@@ -15,6 +15,14 @@ checkpoint holds either.) A trainer saves a model as
 `save_pytree(convert_torch_state_dict(model.state_dict()), path)`, so
 its files are the JAX package's. `msgpack` is imported only when such a
 file is read or written.
+
+In a multi-process run rank 0 writes and the others wait at a barrier
+(`save_on_main`; the pre-training loop's writer thread likewise). A
+tensor-parallel state is gathered before the write (`state.params()`,
+`train_state_to_tree`: collectives every rank calls), so a FULL
+checkpoint has one layout whatever the mesh and a single process of
+either package reads it; a restore reads the whole file and each rank
+takes its slice.
 """
 from __future__ import annotations
 
@@ -178,6 +186,16 @@ def _at(tree: Any, path: Tuple[str, ...]) -> Any:
     return tree
 
 
+def save_on_main(tree: Any, path: str) -> None:
+    """save_pytree on rank 0; every rank returns once the file is
+    written."""
+    from xlxmert_tpu_torch.parallel import mesh as pmesh
+
+    if pmesh.is_main():
+        save_pytree(tree, path)
+    pmesh.barrier()
+
+
 def _param_paths(opt) -> Dict[str, Tuple[Tuple[str, ...], Any]]:
     """{parameter name: (its flax path, the transpose its value takes)}."""
     from xlxmert_tpu_torch.core.convert import flax_path
@@ -212,13 +230,16 @@ def train_state_to_tree(state, total_steps: Optional[int] = None) -> dict:
 
     opt = state.opt
     paths = _param_paths(opt)
+    tp = getattr(state, "tp", None)
+    m, v = (opt.m, opt.v) if tp is None else (tp.gather_dict(opt.m),
+                                              tp.gather_dict(opt.v))
     tree = {"params": state.params(),
             "opt_state": {
                 "count": _tree_of(paths, {
                     n: np.asarray(c, np.int32) for n, c in
                     opt.count.items()}),
-                "mu": convert_torch_state_dict(opt.m),
-                "nu": convert_torch_state_dict(opt.v),
+                "mu": convert_torch_state_dict(m),
+                "nu": convert_torch_state_dict(v),
                 "sched_step": np.asarray(opt.sched_step, np.int32)},
             "step": np.asarray(state.step, np.int32)}
     if total_steps is not None:
@@ -231,11 +252,12 @@ def _full_layout(state) -> dict:
     are zero-stride views)."""
     opt = state.opt
     paths = _param_paths(opt)
+    tp = getattr(state, "tp", None)
     shaped = {}
     for name, p in opt.params.items():
         perm = paths[name][1]
-        shape = tuple(p.shape) if perm is None else tuple(
-            p.shape[i] for i in perm)
+        full = tuple(p.shape) if tp is None else tp.full_shape(name, p.shape)
+        shape = full if perm is None else tuple(full[i] for i in perm)
         shaped[name] = np.broadcast_to(np.float32(0), shape)
     params = _tree_of(paths, shaped)
     scalar = np.broadcast_to(np.int32(0), ())
@@ -265,9 +287,12 @@ def restore_train_state(state, tree_or_path) -> Optional[int]:
     same_layout(_full_layout(state), tree, "full-state checkpoint")
     opt, opt_tree = state.opt, tree["opt_state"]
     state.load_params(tree["params"])
+    tp = getattr(state, "tp", None)
     with torch.no_grad():
         for moments, sub in ((opt.m, opt_tree["mu"]), (opt.v, opt_tree["nu"])):
             for name, value in flax_to_state_dict(sub).items():
+                if tp is not None:
+                    value = tp.split(name, value)
                 moments[name] = value.to(opt.params[name].device)
     for name, (path, _) in _param_paths(opt).items():
         opt.count[name] = int(np.asarray(_at(opt_tree["count"], path)))

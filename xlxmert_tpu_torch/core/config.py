@@ -139,7 +139,7 @@ class TrainConfig(_YamlMixin):
     save_full_state: bool = False
     comment: str = ""
 
-    # distribution (the JAX package's device mesh; one device here)
+    # distribution: the mesh of ranks (parallel/mesh.make_mesh)
     distributed: bool = True
     mesh_shape: Tuple[int, ...] = ()
     mesh_axis_names: Tuple[str, ...] = ("data",)

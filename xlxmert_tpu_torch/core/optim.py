@@ -93,8 +93,11 @@ class ReferenceAdamW:
     `used_mask` (pre-training's per-task skip, torch's grad-is-None
     rule): a parameter outside `used` gets no update and keeps its `m`,
     `v` and `count`; the schedule still steps, and the clip norm is
-    taken over the gradients given. State: per-parameter `count`, `m`
-    and `v`, and the schedule position `sched_step`."""
+    taken over the gradients given. `norm` ({name: gradient} -> the
+    global norm) is replaced where parameters are sharded (a tensor-
+    parallel run sums the shards' squares over the model group). State:
+    per-parameter `count`, `m` and `v`, and the schedule position
+    `sched_step`."""
 
     def __init__(self, params: Dict[str, torch.Tensor], lr: float,
                  total_steps: int, warmup_ratio: float = 0.05,
@@ -110,6 +113,8 @@ class ReferenceAdamW:
         self.v = {n: torch.zeros_like(p) for n, p in params.items()}
         self.count = {n: 0 for n in params}
         self.sched_step = 0
+        self.norm: Callable[[Dict[str, torch.Tensor]], torch.Tensor] = \
+            lambda grads: global_norm(grads.values())
 
     def lr(self) -> np.float32:
         """The learning rate of the next update."""
@@ -122,10 +127,10 @@ class ReferenceAdamW:
         # to the fp32 leaves' type) passed to torch as Python floats
         f32 = np.float32
         lr_t = self.lr()
-        present = [g for g in grads.values() if g is not None]
+        present = {n: g for n, g in grads.items() if g is not None}
         clip = None
         if self.clip_grad_norm and self.clip_grad_norm > 0 and present:
-            norm = global_norm(present)
+            norm = self.norm(present)
             clip = torch.clamp(float(f32(self.clip_grad_norm))
                                / (norm + float(f32(1e-6))), max=1.0)
         b1, b2 = f32(self.b1), f32(self.b2)

@@ -14,8 +14,11 @@ Static-shape discipline (SURVEY.md §7): text pads to max_text_length, the
 final partial batch pads to full batch size and reports `n_valid`; these
 classes only assemble ids, features, and labels. The constructors take
 any feature reader with `.get(img_id)` (an HDF5 `GridFeatureReader`, or
-an in-memory table); only `from_files` opens HDF5. The JAX package's per-process `shard`
-comes with distributed training.
+an in-memory table); only `from_files` opens HDF5. `shard(process_index,
+process_count)` keeps every process_count-th example from
+process_index on, each rank's disjoint part of the data (the
+reference's DistributedSampler contract); the evaluators still see
+every datum.
 """
 from __future__ import annotations
 
@@ -64,6 +67,10 @@ class _QABase:
 
     def __len__(self):
         return len(self.data)
+
+    def shard(self, process_index: int, process_count: int):
+        self.data = self.data[process_index::process_count]
+        return self
 
     def _target(self, datum) -> np.ndarray:
         """Soft-score target vector (vqa_data.py:209-218)."""
@@ -212,6 +219,10 @@ class NLVR2Dataset:
 
     def __len__(self):
         return len(self.data)
+
+    def shard(self, process_index: int, process_count: int):
+        self.data = self.data[process_index::process_count]
+        return self
 
     def _reader(self, datum):
         if isinstance(self.feat, dict):

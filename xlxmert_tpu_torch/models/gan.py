@@ -174,7 +174,15 @@ class SPADE(nn.Module):
     """layers.py:9-47. y (the code map) is resized to x's size. norm_type
     "instance" (default) or "batch" (BatchNorm2d(affine=False): the
     batch's statistics in training, updating the running `mean`/`var`
-    (momentum 0.1, unbiased variance); the running ones otherwise)."""
+    (momentum 0.1, unbiased variance); the running ones otherwise).
+    With `sync_group` (`sync_batch_norm`) the training statistics are
+    the global batch's: the sums, the counts and then the squared
+    deviations are summed over the data group through a differentiable
+    all-reduce (the reference's SyncBatchNorm, main.py:149-151; the JAX
+    package's SPMD step), so the running statistics stay equal on every
+    rank."""
+
+    sync_group = None
 
     def __init__(self, x_dim: int, y_dim: int, nhidden: int = 128,
                  norm_type: str = "instance", dtype=torch.float32,
@@ -192,7 +200,25 @@ class SPADE(nn.Module):
     def _batch_norm(self, x: torch.Tensor, train: bool, eps: float = 1e-5,
                     momentum: float = 0.1) -> torch.Tensor:
         xf = x.float()
-        if train:
+        if train and self.sync_group is not None:
+            from xlxmert_tpu_torch.parallel.mesh import all_reduce_sum
+
+            local = x.shape[0] * x.shape[2] * x.shape[3]
+            sums = all_reduce_sum(torch.cat([
+                xf.sum(dim=(0, 2, 3)),
+                torch.full((1,), float(local), device=x.device)]),
+                self.sync_group)
+            n = sums[-1]
+            mean = sums[:-1] / n
+            d = xf - mean[:, None, None]
+            var = all_reduce_sum((d * d).sum(dim=(0, 2, 3)),
+                                 self.sync_group) / n
+            with torch.no_grad():
+                unbiased = var * (n / torch.clamp(n - 1, min=1))
+                self.mean.copy_((1 - momentum) * self.mean + momentum * mean)
+                self.var.copy_((1 - momentum) * self.var
+                               + momentum * unbiased)
+        elif train:
             mean = xf.mean(dim=(0, 2, 3))
             var = xf.var(dim=(0, 2, 3), unbiased=False)
             n = x.shape[0] * x.shape[2] * x.shape[3]
@@ -647,3 +673,12 @@ def random_discriminator_variables(base_dim: int = 64, emb_dim: int = 2048,
                                       init_H=init_H, init_W=init_H,
                                       acgan=acgan, n_classes=n_classes),
                         seed, "converged")
+
+
+def sync_batch_norm(model: nn.Module, group) -> nn.Module:
+    """Take every batch-norm SPADE's training statistics over the data
+    `group` (None: the rank's own batch)."""
+    for m in model.modules():
+        if isinstance(m, SPADE) and m.norm_type == "batch":
+            m.sync_group = group
+    return model

@@ -61,6 +61,9 @@ from xlxmert_tpu_torch.ops.attention import (
     fused_mha, mha_blhd, mha_blhd_train, softmax_last,
 )
 from xlxmert_tpu_torch.ops.ffn import fused_ffn
+from xlxmert_tpu_torch.parallel.sharding import (
+    copy_to_model_group, reduce_from_model_group,
+)
 
 NEG_INF = -1e9  # additive key mask (fp32- and bf16-safe)
 ATTENTION_ROUTES = ("auto", "einsum", "blhd", "pallas")
@@ -120,19 +123,31 @@ class TrainOptions:
         self.attention = train_attention_mode(attention)
         self.generator: Optional[torch.Generator] = None
 
-    def keep(self, shape, keep_prob: float, device) -> torch.Tensor:
-        """keep ~ Bernoulli(keep_prob), boolean, from the generator."""
+    def keep(self, shape, keep_prob: float, device, heads=None
+             ) -> torch.Tensor:
+        """keep ~ Bernoulli(keep_prob), boolean, from the generator.
+        `heads` (first, total) of a tensor-parallel attention's (B, h, ...)
+        probabilities: the mask of all `total` heads is drawn and heads
+        first..first + h kept, as one process would draw them."""
         if self.generator is None:
             raise RuntimeError("a training forward with dropout needs a "
                                "torch.Generator: pass generator= to the "
                                "model, or call model.eval()")
-        return torch.rand(shape, generator=self.generator,
+        if heads is None:
+            return torch.rand(shape, generator=self.generator,
+                              device=device) < keep_prob
+        first, total = heads
+        full = (shape[0], total) + tuple(shape[2:])
+        keep = torch.rand(full, generator=self.generator,
                           device=device) < keep_prob
+        return keep[:, first:first + shape[1]]
 
 
 class Dropout(nn.Module):
     """flax nn.Dropout: where(keep, x / keep_prob, 0) in x's type, keep
     drawn from the model's generator; the identity in eval mode."""
+
+    heads = None  # (first, total): a tensor-parallel attention's heads
 
     def __init__(self, rate: float, train: TrainOptions):
         super().__init__()
@@ -142,7 +157,8 @@ class Dropout(nn.Module):
         if not self.training or self.rate == 0.0:
             return x
         keep_prob = 1.0 - self.rate
-        keep = self.train_opts.keep(x.shape, keep_prob, x.device)
+        keep = self.train_opts.keep(x.shape, keep_prob, x.device,
+                                    self.heads)
         # divided by keep_prob in x's type, as jnp divides by a weak
         # scalar; a device tensor, so the division is not a reciprocal,
         # made by a fill (a copy from the host would wait for the card)
@@ -166,7 +182,11 @@ def extend_attention_mask(mask: Optional[torch.Tensor], dtype
 
 class Dense(nn.Module):
     """nn.Dense: the product, then the bias, each in the input's type.
-    Parameters in nn.Linear's layout: weight (out, in), bias (out,)."""
+    Parameters in nn.Linear's layout: weight (out, in), bias (out,). A
+    row-parallel Dense (`reduce_group`, parallel/sharding) sums its
+    partial products over the model group before the bias."""
+
+    reduce_group = None
 
     def __init__(self, in_features: int, out_features: int):
         super().__init__()
@@ -174,7 +194,10 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.empty(out_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype)) + self.bias.to(x.dtype)
+        y = F.linear(x, self.weight.to(x.dtype))
+        if self.reduce_group is not None:
+            y = reduce_from_model_group(y, self.reduce_group)
+        return y + self.bias.to(x.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -223,7 +246,11 @@ def einsum_attention(q, k, v, bias, fast: bool, dropout=None
 
 class Attention(nn.Module):
     """Multi-head attention core (HF LxmertAttention): (B, Lq, H*D)
-    context of `hidden` attending to `context`."""
+    context of `hidden` attending to `context`. Tensor-parallel
+    (`tp_group`, parallel/sharding): q/k/v hold this rank's `n_heads`
+    heads and the inputs enter through copy_to_model_group."""
+
+    tp_group = None
 
     def __init__(self, cfg: LxmertConfig, opts: ServingOptions,
                  train: TrainOptions):
@@ -237,6 +264,11 @@ class Attention(nn.Module):
         self.dropout = Dropout(cfg.attention_probs_dropout_prob, train)
 
     def forward(self, hidden, context, bias=None):
+        if self.tp_group is not None:
+            same = context is hidden
+            hidden = copy_to_model_group(hidden, self.tp_group)
+            context = (hidden if same
+                       else copy_to_model_group(context, self.tp_group))
         q, k, v = self.query(hidden), self.key(context), self.value(context)
         H, D = self.n_heads, self.head_dim
         B, Lq, _ = q.shape
@@ -257,7 +289,7 @@ class Attention(nn.Module):
             rate, mask = self.dropout.rate, None
             if rate > 0.0:
                 keep = self.train_opts.keep((B, H, Lq, Lk), 1.0 - rate,
-                                            q.device)
+                                            q.device, self.dropout.heads)
                 mask = keep.to(q.dtype) / torch.full(
                     (), 1.0 - rate, dtype=q.dtype, device=q.device)
             return mha_blhd_train(q, k, v, kbias, mask, H)
@@ -310,12 +342,16 @@ class CrossAttentionLayer(nn.Module):
 
 
 class Intermediate(nn.Module):
+    tp_group = None  # column-parallel: this rank's hidden units
+
     def __init__(self, cfg: LxmertConfig, opts: ServingOptions):
         super().__init__()
         self.opts = opts
         self.dense = Dense(cfg.hidden_size, cfg.intermediate_size)
 
     def forward(self, x):
+        if self.tp_group is not None:
+            x = copy_to_model_group(x, self.tp_group)
         return gelu(self.dense(x), self.opts.fast)
 
 

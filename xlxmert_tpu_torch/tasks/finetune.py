@@ -18,13 +18,23 @@ optimizer updates in place, the optimizer, the accumulator and the
 dropout generator. The model computes in bf16 with `mixed_precision`.
 `predict` runs the eval forward, or the int8 engine calibrated on the
 first `calib_batches` batches (`int8=True`, the CLI's --serve_int8).
-One process: the JAX package's multi-host predict and its device mesh
-come with distributed training.
+
+Data parallelism (parallel/mesh): each rank trains on its own slice of
+the global batch, and the gradients are averaged over the data group
+before the global-norm clip, so the clip sees the global gradient as
+the JAX SPMD step's does; with update_freq > 1 the summed gradient is
+reduced once, on the update step (the `grad_norm` metric is then the
+rank's own batch's). The loss metric is the global batch's. A
+multi-process `predict` writes each rank's answers to `shard_dir`,
+waits at a barrier and merges every shard (the JAX package's
+`_merge_predict_shards`); each rank calibrates its int8 engine on its
+own first batches, as each JAX process does.
 """
 from __future__ import annotations
 
 import dataclasses
-import os
+import json
+from pathlib import Path
 from typing import Any, Dict, Iterable, Optional
 
 import numpy as np
@@ -40,6 +50,7 @@ from xlxmert_tpu_torch.core.optim import (
     ReferenceAdamW, global_norm, make_optimizer,
 )
 from xlxmert_tpu_torch.models.task_heads import NLVR2Model, VQAModel
+from xlxmert_tpu_torch.parallel import mesh as pmesh
 from xlxmert_tpu_torch.utils.device import resolve_device
 
 
@@ -74,11 +85,12 @@ def softmax_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def accumulate_or_apply(opt: ReferenceAdamW,
                         acc: Optional[Dict[str, torch.Tensor]],
                         grads: Dict[str, Optional[torch.Tensor]],
-                        do_update: bool) -> None:
-    """Without an accumulator, one optimizer step on `grads`. With one
-    (update_freq > 1), the JAX package's AccumTrainState: add the raw
-    gradients to the sum (loss.backward's semantics, not a mean), and
-    when `do_update` step the optimizer on the sum and zero it."""
+                        do_update: bool, group=None) -> None:
+    """Without an accumulator, one optimizer step on `grads` (already
+    averaged over the data group). With one (update_freq > 1), the JAX
+    package's AccumTrainState: add the raw gradients to the sum
+    (loss.backward's semantics, not a mean), and when `do_update` average
+    the sum over the data `group`, step the optimizer on it and zero it."""
     if acc is None:
         opt.step(grads)
         return
@@ -86,7 +98,7 @@ def accumulate_or_apply(opt: ReferenceAdamW,
         if g is not None:
             acc[name].add_(g)
     if do_update:
-        opt.step(acc)
+        opt.step(pmesh.all_reduce_mean(acc, group))
         for a in acc.values():
             a.zero_()
 
@@ -104,25 +116,26 @@ class TrainState:
     acc: Optional[Dict[str, torch.Tensor]] = None
     step: int = 0
     seed: int = 0
+    # this rank's place on the model axis when parameters are sharded
+    # (parallel/sharding.TensorParallel)
+    tp: Any = None
 
     def params(self) -> Dict[str, Any]:
-        """The parameters as the JAX package's flax tree (numpy)."""
-        return convert_torch_state_dict(self.model.state_dict())
+        """The parameters as the JAX package's flax tree (numpy), the
+        full tensors (gathered over the model group when sharded: a
+        collective)."""
+        sd = self.model.state_dict()
+        if self.tp is not None:
+            sd = self.tp.gather_dict(sd)
+        return convert_torch_state_dict(sd)
 
     def load_params(self, tree: Dict[str, Any]) -> None:
+        """Load a full flax tree (each rank takes its slice)."""
         with torch.no_grad():
             for name, t in flax_to_state_dict(tree).items():
+                if self.tp is not None:
+                    t = self.tp.split(name, t)
                 self.opt.params[name].copy_(t)
-
-
-def _check_single_process() -> None:
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world > 1 or (torch.distributed.is_available()
-                     and torch.distributed.is_initialized()
-                     and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError(
-            "fine-tuning runs in one process; the JAX package's multi-host "
-            "training and predict are not ported yet")
 
 
 class FinetuneEngine:
@@ -133,8 +146,7 @@ class FinetuneEngine:
     def __init__(self, cfg: FinetuneConfig, num_answers: int,
                  model_cfg: Optional[LxmertConfig] = None,
                  total_steps: int = 10_000, train_attention: str = "xla",
-                 device="cuda"):
-        _check_single_process()
+                 device="cuda", mesh: Optional[pmesh.Mesh] = None):
         self.cfg = cfg
         self.task = cfg.task
         self.num_answers = num_answers
@@ -145,6 +157,10 @@ class FinetuneEngine:
         self.train_attention = train_attention
         self.update_freq = cfg.update_freq
         self.device = resolve_device(device)
+        self.mesh = pmesh.only_axes(
+            mesh or pmesh.make_mesh(cfg.mesh_shape, cfg.mesh_axis_names),
+            ("data",), "fine-tuning")
+        self.data_group = self.mesh.group("data")
 
     def build_model(self, train_attention: Optional[str] = None
                     ) -> nn.Module:
@@ -254,9 +270,13 @@ class FinetuneEngine:
         gradient norm, as device tensors."""
         loss, pred, grads = self.loss_and_grads(
             state.model, self.place(batch), state.generator)
+        if state.acc is None:
+            grads = pmesh.all_reduce_mean(grads, self.data_group)
         grad_norm = global_norm([g for g in grads.values() if g is not None])
-        accumulate_or_apply(state.opt, state.acc, grads, do_update)
+        accumulate_or_apply(state.opt, state.acc, grads, do_update,
+                            self.data_group)
         state.step += 1
+        loss = pmesh.mean_over({"loss": loss}, self.data_group)["loss"]
         return {"loss": loss, "pred": pred, "grad_norm": grad_norm}
 
     # -- prediction -----------------------------------------------------------
@@ -293,14 +313,30 @@ class FinetuneEngine:
         return run
 
     def predict(self, model: nn.Module, batches: Iterable[Dict[str, Any]],
-                label2ans=None, int8: bool = False, calib_batches: int = 4
-                ) -> Dict[Any, Any]:
+                label2ans=None, int8: bool = False, calib_batches: int = 4,
+                shard_dir: Optional[str] = None) -> Dict[Any, Any]:
         """quesid -> answer over host batches (mapped through label2ans
         when given, else label ids), as Trainer.predict (vqa.py:259-295).
         The eval forward of `model`, or with int8=True the int8 engine
         calibrated on the first `calib_batches` batches (held back, then
-        served through the calibrated step)."""
-        _check_single_process()
+        served through the calibrated step).
+
+        In a multi-process run `batches` is this rank's part of the eval
+        stream (e.g. every world-th batch; shards need not be of equal
+        length) and `shard_dir` a directory every rank sees: each rank
+        writes its answers there, waits for the others and returns the
+        merge of all the shards."""
+        local = self._predict_loop(model, batches, label2ans, int8,
+                                   calib_batches)
+        if pmesh.world_size() == 1:
+            return local
+        if shard_dir is None:
+            raise ValueError(
+                "multi-process predict needs shard_dir (a directory every "
+                "rank sees) for the shard merge; pass the run's output dir")
+        return merge_predict_shards(local, shard_dir)
+
+    def _predict_loop(self, model, batches, label2ans, int8, calib_batches):
         quesid2ans: Dict[Any, Any] = {}
 
         def emit(qids, n_valid, preds):
@@ -340,3 +376,25 @@ class FinetuneEngine:
         finally:
             model.train(was_training)
         return quesid2ans
+
+
+def merge_predict_shards(local: Dict[Any, Any], shard_dir: str
+                         ) -> Dict[Any, Any]:
+    """Write this rank's quesid -> answer shard, wait for every rank,
+    merge all shards (a second barrier keeps the files until every rank
+    has read them). Dumped as [qid, ans] pairs, so int question ids
+    round-trip."""
+    p = Path(shard_dir)
+    p.mkdir(parents=True, exist_ok=True)
+    pairs = [[k.item() if hasattr(k, "item") else k,
+              v.item() if hasattr(v, "item") else v]
+             for k, v in local.items()]
+    (p / f"predict_shard{pmesh.rank()}.json").write_text(json.dumps(pairs))
+    pmesh.barrier()
+    merged: Dict[Any, Any] = {}
+    for i in range(pmesh.world_size()):
+        for qid, ans in json.loads(
+                (p / f"predict_shard{i}.json").read_text()):
+            merged[qid] = ans
+    pmesh.barrier()
+    return merged

@@ -18,14 +18,22 @@ The reference's behaviour, as the JAX package reproduces it
     optimizer (`ReferenceAdamW.step(grads, used=...)`).
 
 The masks and the dropout draw from the state's `torch.Generator` on
-the device, reseeded before every training step from the run's seed and
-the step (`step_seed`), as the JAX package folds the step into its PRNG
-key (the bits differ): a run resumed from a full-state checkpoint draws
-what the uninterrupted run draws. One process and one device: the JAX package's mesh and tensor
-parallelism come with distributed training, and its
-`chained_train_step` (k steps in one lax.scan, amortising the TPU's
-dispatch) has its card counterpart in CUDA graphs, training-speed work
-for later.
+the device, reseeded before every training step from the run's seed,
+the step and the rank's data index (`step_seed`), as the JAX package
+folds the step into its PRNG key (the bits differ): a run resumed from
+a full-state checkpoint draws what the uninterrupted run draws, data
+ranks draw different masks, and the ranks of one model group the same.
+
+The mesh comes from cfg.mesh_shape / cfg.mesh_axis_names (parallel/
+mesh): ("data",) is data parallelism, ("data", "model") adds Megatron
+tensor parallelism (parallel/sharding: each rank holds its slices of
+the q/k/v, intermediate and output projections and H/tp heads). The
+gradients are averaged over the data group; the clip's global norm sums
+the sharded leaves' squares over the model group and counts each
+replicated leaf once. The losses are the global batch's. The JAX
+package's `chained_train_step` (k steps in one lax.scan, amortising the
+TPU's dispatch) has its card counterpart in CUDA graphs, training-speed
+work for later; `place_stacked` keeps its per-process input contract.
 """
 from __future__ import annotations
 
@@ -38,14 +46,16 @@ from xlxmert_tpu_torch.core.config import LxmertConfig, TrainConfig
 from xlxmert_tpu_torch.core.convert import (
     convert_torch_state_dict, flax_to_state_dict,
 )
-from xlxmert_tpu_torch.core.optim import global_norm, make_optimizer
+from xlxmert_tpu_torch.core.optim import make_optimizer
 from xlxmert_tpu_torch.models.xlxmert import (
     XLxmert, embed_clusters, get_word_embedding_matrix, pretrain_losses,
 )
 from xlxmert_tpu_torch.ops.masking import (
     random_word_mask, square_vis_mask, uniform_count_vis_mask,
 )
-from xlxmert_tpu_torch.tasks.finetune import TrainState, _check_single_process
+from xlxmert_tpu_torch.parallel import mesh as pmesh
+from xlxmert_tpu_torch.parallel.sharding import TensorParallel, shard_params
+from xlxmert_tpu_torch.tasks.finetune import TrainState
 from xlxmert_tpu_torch.utils.boxes import box_position
 from xlxmert_tpu_torch.utils.device import resolve_device
 
@@ -222,9 +232,11 @@ def build_inputs_and_labels(batch: Dict[str, torch.Tensor],
             labels)
 
 
-def step_seed(seed: int, step: int) -> int:
+def step_seed(seed: int, step: int, data_index: int = 0) -> int:
     """The generator's seed for training step `step` of the run seeded
-    with `seed`."""
+    with `seed`, on the ranks of data index `data_index` (0: the
+    single-process stream)."""
+    seed = seed ^ (data_index * 0x9E3779B1)
     return ((seed & 0x7FFFFFFF) << 32) | (step & 0xFFFFFFFF)
 
 
@@ -235,8 +247,7 @@ class PretrainEngine:
     def __init__(self, cfg: TrainConfig,
                  model_cfg: Optional[LxmertConfig] = None,
                  total_steps: int = 100_000, train_attention: str = "xla",
-                 device="cuda"):
-        _check_single_process()
+                 device="cuda", mesh: Optional[pmesh.Mesh] = None):
         self.cfg = cfg
         self.model_cfg = model_cfg or LxmertConfig(
             num_clusters=cfg.num_clusters if cfg.clustering else 0)
@@ -245,6 +256,11 @@ class PretrainEngine:
         self.total_steps = total_steps
         self.train_attention = train_attention
         self.device = resolve_device(device)
+        self.mesh = pmesh.only_axes(
+            mesh or pmesh.make_mesh(cfg.mesh_shape, cfg.mesh_axis_names),
+            ("data", "model"), "pre-training")
+        self.data_group = self.mesh.group("data")
+        self.tp = TensorParallel.from_mesh(self.mesh)
         self.heads = run_heads(cfg)
         self.box_pos = torch.from_numpy(box_position(cfg.grid_size)).to(
             self.device)
@@ -285,13 +301,17 @@ class PretrainEngine:
         model = self.build_model()
         model.load_state_dict(flax_to_state_dict(params))
         model = model.to(self.device).train()
+        if self.tp is not None:
+            shard_params(model, self.tp)
         cfg = self.cfg
         opt = make_optimizer(dict(model.named_parameters()), cfg.lr,
                              self.total_steps, cfg.warmup_ratio,
                              cfg.weight_decay, cfg.clip_grad_norm,
                              cfg.adam_eps)
+        if self.tp is not None:
+            opt.norm = self.tp.global_norm
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        return TrainState(model, opt, gen, seed=seed)
+        return TrainState(model, opt, gen, seed=seed, tp=self.tp)
 
     # -- steps --------------------------------------------------------------
     def place(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -362,14 +382,25 @@ class PretrainEngine:
         its loss reaches are updated, the others keep their moments and
         counts. Returns the losses and the global gradient norm as
         device tensors."""
-        state.generator.manual_seed(step_seed(state.seed, state.step))
+        state.generator.manual_seed(step_seed(
+            state.seed, state.step, self.mesh.index("data")))
         losses, grads = self.loss_and_grads(state.model, self.place(batch),
                                             task, centroids, state.generator)
+        # the same set on every rank: used_param_mask decides it
         used = {n for n, g in grads.items() if g is not None}
-        losses["grad_norm"] = global_norm([grads[n] for n in used])
+        grads = pmesh.all_reduce_mean(grads, self.data_group)
+        losses = pmesh.mean_over(losses, self.data_group)
+        losses["grad_norm"] = state.opt.norm({n: grads[n] for n in used})
         state.opt.step(grads, used=used)
         state.step += 1
         return losses
+
+    def place_stacked(self, batches) -> Dict[str, torch.Tensor]:
+        """k host batches (this rank's own, as `place` takes them) stacked
+        to (k, B, ...) tensors on the engine's device: the JAX package's
+        per-process input of k chained steps."""
+        placed = [self.place(b) for b in batches]
+        return {k: torch.stack([p[k] for p in placed]) for k in placed[0]}
 
     @torch.no_grad()
     def eval_step(self, model: XLxmert, batch: Dict[str, Any], task: str,

@@ -28,8 +28,14 @@ JAX package folds the step into a PRNG key; the bits differ). The
 state's trees convert to and from the JAX package's layout
 (`state_to_tree`, `restore_state`: `serialization.to_state_dict` of its
 GanState), so a checkpoint written by either package resumes in the
-other. One process and one device: the JAX package's data mesh comes
-with distributed training.
+other.
+
+Data parallelism (parallel/mesh, the JAX package's data mesh): each
+rank steps on its own slice of the global batch, the gradients are
+averaged over the data group before each Adam step, the metrics are the
+global batch's, and the "batch" SPADE norm takes its statistics over the
+global batch (models/gan.sync_batch_norm). Data ranks draw their own
+noise.
 """
 from __future__ import annotations
 
@@ -52,7 +58,8 @@ from xlxmert_tpu_torch.models.gan import (
 from xlxmert_tpu_torch.models.resnet import (
     ResNet, load_variables as load_resnet, normalize_image, resnet50,
 )
-from xlxmert_tpu_torch.tasks.finetune import _check_single_process
+from xlxmert_tpu_torch.models.gan import sync_batch_norm
+from xlxmert_tpu_torch.parallel import mesh as pmesh
 from xlxmert_tpu_torch.utils.device import resolve_device
 
 
@@ -137,10 +144,12 @@ class GanEngine:
 
     def __init__(self, cfg: GanConfig,
                  perceptual_variables: Optional[Dict] = None,
-                 device="cuda"):
-        _check_single_process()
+                 device="cuda", mesh: Optional[pmesh.Mesh] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = pmesh.only_axes(mesh or pmesh.make_mesh(), ("data",),
+                                    "GAN training")
+        self.data_group = self.mesh.group("data")
         self.dtype = torch.bfloat16 if cfg.mixed_precision else torch.float32
         # perceptual encoder: a frozen resnet, active only when its
         # weights are given (nothing is downloaded)
@@ -179,12 +188,14 @@ class GanEngine:
                        g_vars.get("batch_stats"))
         load_variables(D, d_vars["params"], d_vars.get("sn"))
         G, D = G.to(self.device), D.to(self.device)
+        sync_batch_norm(G, self.data_group)
         cfg = self.cfg
         opt_g = Adam(dict(G.named_parameters()), cfg.g_lr, cfg.adam_beta1,
                      cfg.adam_beta2, eps=1e-7)
         opt_d = Adam(dict(D.named_parameters()), cfg.d_lr, cfg.adam_beta1,
                      cfg.adam_beta2, eps=1e-7)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        gen = torch.Generator(device=self.device).manual_seed(
+            seed ^ (self.mesh.index("data") * 0x9E3779B1))
         return GanState(G, D, opt_g, opt_d, gen)
 
     def place(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -247,7 +258,7 @@ class GanEngine:
                        g_perceptual=perc, g_total=total)
         self._update(state.opt_g, total)
         state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, pmesh.mean_over(metrics, self.data_group)
 
     def d_step(self, state: GanState, batch: Dict[str, torch.Tensor],
                centroids: torch.Tensor
@@ -274,14 +285,14 @@ class GanEngine:
         metrics.update(d_adv_loss=adv_loss, d_total=total,
                        d_real=real_adv.mean(), d_fake=fake_adv.mean())
         self._update(state.opt_d, total)
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, pmesh.mean_over(metrics, self.data_group)
 
-    @staticmethod
-    def _update(opt: Adam, loss: torch.Tensor) -> None:
+    def _update(self, opt: Adam, loss: torch.Tensor) -> None:
         names = list(opt.params)
         grads = torch.autograd.grad(loss, [opt.params[n] for n in names],
                                     allow_unused=True)
-        opt.step(dict(zip(names, grads)))
+        opt.step(pmesh.all_reduce_mean(dict(zip(names, grads)),
+                                       self.data_group))
 
     def chained_gd_step(self, k: int) -> Callable:
         """k (D-step, G-step) pairs on one batch, as the JAX package's
