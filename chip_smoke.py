@@ -32,9 +32,11 @@ Phases, each of which fails the script on error:
       and beside it the plain-PyTorch time of the backward's einsum
       recompute; its times are summed per training step (pre-training's
       B=256 step is among its cases). mha_hbatch is held to its plain
-      version at (h)'s four attention shapes at B=256 and the
-      calibration batch, with and without a bias, beside SDPA and
-      mha_blhd (B1, the same function) at the same shapes. fused_mha's
+      version and bit for bit to mha_blhd(fast=True) (B1, the same
+      function) at (h)'s four attention shapes at B=256 and the
+      calibration batch, with and without a bias, beside SDPA and B1's
+      times at the same shapes; each case logs its launch plan and the
+      CTAs an SM holds (one wave at B=256, gated). fused_mha's
       gradients on the card (kernel forward, einsum backward) are held
       to the CPU's (the bf16 bias's gradient in the fp32 case element by
       element to 2^-7 |r| plus its sum's fp32 accumulation bound), and
@@ -757,14 +759,30 @@ def hbatch_cases(cfg, B):
                 yield b, lq, lk, bias, {kind: n} if on else {}
 
 
+def hbatch_resident_on_card(attention, plan, lk: int) -> int:
+    """CTAs of an mha_hbatch plan one SM holds at once, by the card's
+    occupancy calculator (csrc/mha_hbatch.cu mha_hbatch_resident)."""
+    import ctypes
+
+    fn = attention.HBATCH_KERNEL.lib().mha_hbatch_resident
+    fn.argtypes, fn.restype = [ctypes.c_int] * 3, ctypes.c_int
+    return fn(lk, plan.warps, plan.smem)
+
+
 def check_hbatch(torch, F, attention, cfg, rng, log):
     """mha_hbatch against its plain version on column slices of fused
-    projections with a (B, 1, 1, Lk) bias or none, bf16; SDPA on the
-    same heads as the library call, and mha_blhd (B1, the same function)
-    at the same shapes."""
+    projections with a (B, 1, 1, Lk) bias or none, bf16, and bit for bit
+    against mha_blhd(fast=True) (B1, whose per-tile body every head
+    runs); SDPA on the same heads as the library call, and B1's time at
+    the same shapes. Each case logs the plan it ran (ops/_plan
+    .hbatch_plan) with the CTAs an SM holds by the card's occupancy
+    calculator: at B=BATCH every CTA must be resident in one wave."""
+    from xlxmert_tpu_torch.ops import _plan
+
     H, HD = cfg.num_attention_heads, cfg.hidden_size
     D = HD // H
     dt = "bfloat16"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     for B, lq, lk, with_bias, uses in hbatch_cases(cfg, BATCH):
         q, k, v, bias = _qkv_bias(torch, rng, B, lq, lk, HD, torch.bfloat16,
@@ -772,11 +790,24 @@ def check_hbatch(torch, F, attention, cfg, rng, log):
         args = (q, k, v, None if bias is None else bias[:, None, None], H)
         out = attention.mha_hbatch(*args)
         ref = attention.mha_hbatch_reference(*args)
+        b1 = attention.mha_blhd(*args, True)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
+        what = f"mha_hbatch B={B} {lq}x{lk} bias={with_bias}"
         if not (err <= MHA_TOL[dt]) or not torch.isfinite(out).all():
-            fail(f"mha_hbatch B={B} {lq}x{lk} bias={with_bias}: max abs "
-                 f"err {err} > {MHA_TOL[dt]}")
+            fail(f"{what}: max abs err {err} > {MHA_TOL[dt]}")
+        if not torch.equal(out, b1):
+            fail(f"{what}: not bit-equal to mha_blhd(fast=True): "
+                 f"{(out != b1).sum().item()} elements differ, by up to "
+                 f"{(out.float() - b1.float()).abs().max().item()}")
+        plan = _plan.hbatch_plan(B, H, lq, lk)
+        on_sm = hbatch_resident_on_card(attention, plan, lk)
+        if on_sm < 1:
+            fail(f"{what}: the card holds no CTA of the plan {plan}")
+        waves = math.ceil(B * plan.grid[1] / (sms * on_sm))
+        if B == BATCH and waves > 1:
+            fail(f"{what}: the plan {plan} takes {waves} waves ({on_sm} "
+                 f"CTAs an SM on {sms} SMs)")
         heads = [t.view(B, -1, H, D).transpose(1, 2) for t in (q, k, v)]
         mask = None if bias is None else bias[:, None, None]
         # a launch takes the host about as long as the card takes for
@@ -794,13 +825,21 @@ def check_hbatch(torch, F, attention, cfg, rng, log):
         row = {"Lq": lq, "Lk": lk, "bias": with_bias, "dtype": dt, "B": B,
                "max_abs_err": err, "tol": MHA_TOL[dt], "enqueue_ms": enqueue,
                **times, "uses": uses,
+               "plan": plan._asdict(), "resident": on_sm,
+               "resident_model": _plan.hbatch_resident(plan, lk),
+               "waves": waves,
                **bound(nbytes, 4.0 * B * H * lq * lk * D, dt)}
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         rows.append(row)
-        log(f"  mha_hbatch B={B:3d} {lq:2d}x{lk:2d} bias={with_bias!s:5} "
-            f"err {err:.2e} (tol {MHA_TOL[dt]:g})  kernel {row['ms']:.4f} ms "
-            f"(back to back {enqueue:.4f})  plain {row['plain_ms']:.4f}  sdpa "
+        log(f"  {what:37} err {err:.2e} (tol {MHA_TOL[dt]:g}), bit-equal to "
+            f"mha_blhd  kernel {row['ms']:.4f} ms (back to back "
+            f"{enqueue:.4f})  plain {row['plain_ms']:.4f}  sdpa "
             f"{row['library_ms']:.4f}  mha_blhd {row['b1_ms']:.4f}  bound "
-            f"{row['bound_ms']:.4f} ({row['bound_by']})"
+            f"{row['bound_ms']:.4f} ({row['bound_by']}, "
+            f"{row['bound_share']:.0%} of it)  plan: grid {plan.grid}, "
+            f"{plan.heads} heads a CTA, {plan.lanes} lanes, {plan.slots} "
+            f"slots, {plan.warps} warps, {plan.smem} B; {on_sm} CTAs an SM "
+            f"(model {row['resident_model']}), {waves} wave(s)"
             + not_queued_note(row))
     return rows
 

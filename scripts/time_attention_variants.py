@@ -38,16 +38,15 @@ sys.path.insert(0, ROOT)
 
 CSRC = os.path.join(ROOT, "xlxmert_tpu_torch", "csrc")
 HEADER = "attention_mma.cuh"
-RCP = """            pack_bf16(__fmul_rn(s[2 * kk + half][2 * r], inv[r]),
-                      __fmul_rn(s[2 * kk + half][2 * r + 1], inv[r]));"""
+RCP = """        float p0 = __fmul_rn(s[2 * kk + half][2 * r], inv[r]);
+        float p1 = __fmul_rn(s[2 * kk + half][2 * r + 1], inv[r]);"""
 EDITS = {
-    "div": (RCP, """            pack_bf16(__fdiv_rn(s[2 * kk + half][2 * r], sum[r]),
-                      __fdiv_rn(s[2 * kk + half][2 * r + 1], sum[r]));"""),
-    "zero_guard": (RCP, """            pack_bf16(
-                s[2 * kk + half][2 * r] == 0.f ? 0.f
-                    : __fdiv_rn(s[2 * kk + half][2 * r], sum[r]),
-                s[2 * kk + half][2 * r + 1] == 0.f ? 0.f
-                    : __fdiv_rn(s[2 * kk + half][2 * r + 1], sum[r]));"""),
+    "div": (RCP, """        float p0 = __fdiv_rn(s[2 * kk + half][2 * r], sum[r]);
+        float p1 = __fdiv_rn(s[2 * kk + half][2 * r + 1], sum[r]);"""),
+    "zero_guard": (RCP, """        float p0 = s[2 * kk + half][2 * r] == 0.f ? 0.f
+            : __fdiv_rn(s[2 * kk + half][2 * r], sum[r]);
+        float p1 = s[2 * kk + half][2 * r + 1] == 0.f ? 0.f
+            : __fdiv_rn(s[2 * kk + half][2 * r + 1], sum[r]);"""),
     "no_exp": ("        x = expf(x);\n", ""),
     "tie_off": ("constexpr int kTieUlps = 16;", "constexpr int kTieUlps = -1;"),
     "tie64": ("constexpr int kTieUlps = 16;", "constexpr int kTieUlps = 64;"),

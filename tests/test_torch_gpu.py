@@ -17,7 +17,7 @@ import torch
 
 from xlxmert_tpu_torch.core.config import LxmertConfig
 from xlxmert_tpu_torch.ops import (
-    attention, fused_block, ffn, int8_matmul, quant,
+    _plan, attention, fused_block, ffn, int8_matmul, quant,
 )
 from xlxmert_tpu_torch.ops.quant import quantize_weight, with_activation_scale
 
@@ -111,7 +111,8 @@ HBATCH_SHAPES = [(20, 20), (64, 64), (20, 64), (64, 20), (8, 8), (12, 64),
 def test_mha_hbatch_kernel_matches_plain(cuda, Lq, Lk, with_bias, B):
     """bf16 out within 2e-2 of the plain version (the softmax sum and
     both products add in another order: one bf16 step at |out| ~ 2), and
-    of mha_blhd, which computes the same function."""
+    bit-equal to mha_blhd(fast=True), whose per-tile body every head
+    runs."""
     rng = np.random.RandomState(Lq * 100 + Lk + B)
     H = 12
     q, k, v = _qkv(rng, B, Lq, Lk, H * 64, torch.bfloat16, cuda)
@@ -129,9 +130,60 @@ def test_mha_hbatch_kernel_matches_plain(cuda, Lq, Lk, with_bias, B):
     assert out.shape == ref.shape == (B, Lq, H * 64)
     assert out.dtype == torch.bfloat16 and out.is_contiguous()
     assert torch.isfinite(out).all()
-    for other in (ref, attention.mha_blhd(q, k, v, bias, H, fast=True)):
-        err = (out.float() - other.float()).abs().max().item()
-        assert err <= 2e-2, err
+    assert torch.equal(out, attention.mha_blhd(q, k, v, bias, H, fast=True))
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2e-2, err
+
+
+def near_tie_qkv(rng, B, L, H):
+    """q, k, v (B, L, H*64) as float32 arrays of bf16 values, where each
+    query row's scaled score against key 0 of its (b, h) lies at a bf16
+    rounding midpoint plus half an fp32 step by its exact sum, but one
+    full step above it by the plain version's fp32 chain (one fused
+    multiply-add per column, in order). Column 0 gives 17 a / 8 (a odd,
+    17..29: 17 a / 64 is a midpoint of two bf16 values in [4, 8)),
+    columns 1 and 2 add 0.75 and -0.25 of the fp32 step at it (2^-18);
+    key 0 is zero past column 2 and the other keys zero below it, so their
+    scores are small and key 0 takes most of p. A sum in another order
+    (the tensor cores') can round such a score to the other bf16
+    neighbour, which moves the context by up to ~0.03."""
+    D = 64
+    q = rng.randn(B, L, H, D).astype(np.float32)
+    k = (rng.randn(B, L, H, D) * 0.1).astype(np.float32)
+    q[..., 0] = rng.choice(np.arange(17, 31, 2), size=(B, L, H))
+    q[..., 1] = 0.75 * 2.0 ** -9
+    q[..., 2] = -0.25 * 2.0 ** -9
+    k[..., :3] = 0
+    k[:, 0] = 0
+    k[:, 0, :, 0] = 17 / 8
+    k[:, 0, :, 1:3] = 2.0 ** -9
+    v = rng.randn(B, L, H, D).astype(np.float32)
+    bf16 = [torch.from_numpy(t.reshape(B, L, H * D)).to(torch.bfloat16)
+            .float().numpy() for t in (q, k, v)]
+    return tuple(bf16)
+
+
+def test_mha_hbatch_kernel_at_bf16_rounding_ties(cuda):
+    """The 64 x 64 padding-bias shape at B=256 with every query row's
+    dominant score near a bf16 rounding midpoint (near_tie_qkv): bit-equal
+    to mha_blhd(fast=True), which recomputes such scores in the plain
+    version's order, and within 2e-2 of the plain version."""
+    rng = np.random.RandomState(6)
+    B, L, H = 256, 64, 12
+    q, k, v = (torch.from_numpy(t).to(cuda, torch.bfloat16)
+               for t in near_tie_qkv(rng, B, L, H))
+    m = (rng.rand(B, L) > 0.3).astype(np.float32)
+    m[:, 0] = 1
+    bias = ((1.0 - torch.from_numpy(m)) * -1e9)[:, None, None, :].to(
+        cuda, torch.bfloat16)
+    before = attention.HBATCH_KERNEL.launches
+    out = attention.mha_hbatch(q, k, v, bias, H)
+    torch.cuda.synchronize()
+    assert attention.HBATCH_KERNEL.launches == before + 1
+    assert torch.equal(out, attention.mha_blhd(q, k, v, bias, H, fast=True))
+    ref = attention.mha_hbatch_reference(q, k, v, bias, H)
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2e-2, err
 
 
 def test_mha_hbatch_kernel_rejects_what_it_cannot_take(cuda):
@@ -144,6 +196,21 @@ def test_mha_hbatch_kernel_rejects_what_it_cannot_take(cuda):
     q = torch.zeros(2, 65, 768, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="exceed"):
         attention.mha_hbatch(q, q, q, None, 12)
+    # a plan whose bytes or warps the kernel does not compute for the
+    # shape: the C entry point launches nothing and returns an error
+    q = torch.zeros(2, 8, 768, device=cuda, dtype=torch.bfloat16)
+    out = torch.empty_like(q)
+    plan = _plan.hbatch_plan(2, 12, 8, 8)
+    stream = torch.cuda.current_stream().cuda_stream
+    before = attention.HBATCH_KERNEL.launches
+    for bad in (plan._replace(smem=plan.smem + 16),
+                plan._replace(warps=plan.warps + 1)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            attention.HBATCH_KERNEL.launch(
+                q.data_ptr(), q.data_ptr(), q.data_ptr(), None,
+                out.data_ptr(), *attention._blhd_args(q, q, q, 12, True)[:-2],
+                *bad.launch_args(), stream)
+    assert attention.HBATCH_KERNEL.launches == before
 
 
 # the training path's shapes (text 20, visual 64, both cross directions)

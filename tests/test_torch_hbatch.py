@@ -1,6 +1,8 @@
 """The port's batched-head attention (`ops/attention.mha_hbatch`, plain
-version on the CPU) against the JAX kernel it replaces, and the int8
-engine's attention switch against the JAX engine's.
+version on the CPU) against the JAX kernel it replaces, its launch plan
+(`ops/_plan.hbatch_plan`) at every shape the card tests and chip_smoke
+give it, and the int8 engine's attention switch against the JAX
+engine's.
 
 The JAX kernel is `core_hbatch` in scripts/drive_attention_layout.py,
 nested in that script's `main()`, whose module parses argv at import. So
@@ -10,6 +12,8 @@ itself would run it there.
 """
 import ast
 import os
+import sys
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -24,10 +28,14 @@ from xlxmert_tpu.ops.attention import mha_blhd as jax_mha_blhd
 from xlxmert_tpu.serving import lxmert_int8 as jeng
 from xlxmert_tpu.utils.boxes import box_position
 from xlxmert_tpu_torch.core.config import LxmertConfig
-from xlxmert_tpu_torch.ops import attention
+from xlxmert_tpu_torch.ops import _plan, attention
 from xlxmert_tpu_torch.serving import lxmert_int8 as teng
 
+from test_torch_gpu import HBATCH_SHAPES, near_tie_qkv
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+import chip_smoke  # noqa: E402  (mha_hbatch's path cases)
 DRIVER = os.path.join(ROOT, "scripts", "drive_attention_layout.py")
 # bf16 outputs: the softmax sum and both products add in other orders,
 # and XLA:CPU may keep a fused intermediate in fp32; one bf16 step at
@@ -102,6 +110,87 @@ def test_the_jax_hbatch_kernel_raises_without_a_bias():
     q, k, v, _ = operands(1, 4, 5, 9, 2, 16, False)
     with pytest.raises(AttributeError, match="reshape"):
         jax_core_hbatch()(*map(to_jax, (q, k, v)), None, 2)
+
+
+# (B, Lq, Lk, H): chip_smoke's cases at full width and the card tests'
+# shapes at 1, 4 and 12 heads, at the layout path's batch and
+# calibration's
+PLAN_CASES = sorted(
+    {(B, lq, lk, 12) for B, lq, lk, _, _ in chip_smoke.hbatch_cases(
+        LxmertConfig(), chip_smoke.BATCH)}
+    | {(B, lq, lk, H) for B in (256, 8) for lq, lk in HBATCH_SHAPES
+       for H in (1, 4, 12)})
+
+
+@pytest.mark.parametrize("B,Lq,Lk,H", PLAN_CASES)
+def test_the_hbatch_plan_covers_every_row_and_head_once(B, Lq, Lk, H):
+    """The plan divides H over its groups, its CTAs (the kernel's index
+    arithmetic, `hbatch_cta_work`) cover every (batch row, head) exactly
+    once, each head of a CTA in its ring slot (head j in slot j % slots,
+    more slots than lanes unless every head has one, so that heads land
+    while the lanes compute), with one warp a q tile of a lane's head, a
+    CTA stays within 227 KB of shared memory, and at B=256 every CTA is
+    resident in one wave on 132 SMs, one a batch row."""
+    plan = _plan.hbatch_plan(B, H, Lq, Lk)
+    (rows, G), heads = plan.grid, plan.heads
+    assert rows == B and H % G == 0 and heads == H // G
+    cover = Counter()
+    for bx in range(rows):
+        for by in range(G):
+            work = _plan.hbatch_cta_work(plan, bx, by)
+            assert len(work["lanes"]) == plan.lanes
+            for lane in work["lanes"]:
+                assert [h for h, _ in lane] == sorted(h for h, _ in lane)
+                assert all(slot == (h - by * heads) % plan.slots
+                           for h, slot in lane)
+                cover.update((work["row"], h) for h, _ in lane)
+    assert cover == Counter({(b, h): 1 for b in range(B) for h in range(H)})
+    assert plan.lanes <= heads and plan.slots <= min(heads, 8)
+    assert plan.slots > plan.lanes or plan.slots == heads
+    # two CTAs an SM: 12 warps up to 32 keys (80 registers a thread), 8
+    # beyond (128)
+    assert plan.warps == plan.lanes * -(-Lq // 16) <= (12 if Lk <= 32
+                                                       else 8)
+    # q, k and v of a head (16-row tiles of 64 bf16 + 16 bytes) a slot,
+    # an 8-byte barrier a head and the bias row in fp32
+    head = (16 * -(-Lq // 16) + 32 * -(-Lk // 16)) * (64 * 2 + 16)
+    assert plan.smem == plan.slots * head + 8 * heads + 4 * Lk <= 232_448
+    if B == 256:
+        assert G == 1
+        assert B * G <= 132 * _plan.hbatch_resident(plan, Lk)
+    else:
+        assert B * G >= 132 or G == H
+
+
+def test_the_near_tie_case_flips_under_another_order():
+    """The card test's near-tie operands (test_torch_gpu.near_tie_qkv):
+    their dominant scores round to another bf16 value when summed exactly
+    than in the plain version's fp32 chain in many rows, and that moves
+    the context by more than the 2e-2 the kernel is held to, so a kernel
+    that summed those scores in its own order would fail the test."""
+    B, L, H = 2, 64, 12
+    q, k, v = near_tie_qkv(np.random.RandomState(6), B, L, H)
+    x = q.reshape(B, L, H, 64).astype(np.float64)
+    y = k.reshape(B, L, H, 64)[:, :1].astype(np.float64)
+    chain = np.zeros((B, L, H), np.float32)
+    for d in range(64):   # one fused multiply-add per column
+        chain = (x[..., d] * y[..., d] + chain).astype(np.float32)
+    scale = np.float32(0.125)
+
+    def bf16(a):
+        return torch.from_numpy(np.asarray(a * scale, np.float32)).to(
+            torch.bfloat16)
+
+    flips = (bf16(chain) != bf16((x * y).sum(-1))).float().mean().item()
+    assert flips > 0.25, flips
+    qt, kt, vt = (torch.from_numpy(t).to(torch.bfloat16) for t in (q, k, v))
+    plain = attention.mha_hbatch(qt, kt, vt, None, H)
+    heads = [attention._heads(t, H).double() for t in (qt, kt, vt)]
+    s = (heads[0] @ heads[1].transpose(-1, -2)).float() * float(scale)
+    p = attention.softmax_last(s.to(torch.bfloat16)).to(torch.bfloat16)
+    exact = (p.float() @ heads[2].float()).to(torch.bfloat16)
+    exact = exact.transpose(1, 2).reshape(B, L, H * 64)
+    assert (exact.float() - plain.float()).abs().max().item() > 2e-2
 
 
 SHAPE = dict(vocab_size=200, hidden_size=64, num_attention_heads=4,

@@ -2,7 +2,9 @@
 // only: the bf16 route of mha_blhd.cu (packed heads, (B, L, H*D)), of
 // fused_mha.cu ((B, H, L, D)) and, with a dropout mask, of
 // mha_blhd_train.cu. Their fp32 route stays on attention.cuh's CUDA-core
-// body, which is exact to 1e-5; on tensor cores fp32 would be TF32.
+// body, which is exact to 1e-5; on tensor cores fp32 would be TF32. The
+// per-tile body (attend_tile, store_tile) is also mha_hbatch.cu's, so
+// that kernel computes this one's bits in another organisation.
 //
 // Replaces the TPU kernels xlxmert_tpu/ops/attention.py::_mha_blhd_kernel
 // (:159, called by mha_blhd, :256), ::_mha_kernel (:36, called by
@@ -176,6 +178,181 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
   }
 }
 
+// One warp's 16-row q tile of one (batch row, head) against all keys:
+// the body that every bf16 kernel of the port runs (this file's kernel,
+// and mha_hbatch.cu's). qh: the tile in shared memory (row stride kRow),
+// which receives the context; ks, vs: the head's keys and values, 16 KT
+// rows each, zero rows past Lk; kb: the Lk bias values in fp32, added
+// where has_bias; mk: the dropout factors in the accumulator layout
+// (kMask).
+// kWaitV: v is still in flight in the caller's last cp.async group, and
+// every thread of the CTA waits for it (cp.async.wait_group 0 and a
+// barrier) after the softmax, before p v.
+template <int KT, bool kFast, bool kMask, bool kWaitV>
+__device__ __forceinline__ void attend_tile(
+    bf16* qh, const bf16* ks, const bf16* vs, const float* kb,
+    bool has_bias, uint32_t (&mk)[kMask ? 2 * KT : 1][2], int Lk,
+    float scale) {
+  constexpr int NT = 2 * KT;  // score tiles of 8 keys
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;  // fragment row (and row + 8)
+  const int t = lane % 4;  // fragment column pair
+
+  // scores: the tile's 16 rows against every key, fp32 accumulators
+  uint32_t qa[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldmatrix_x4(qa[kk], qh + (lane % 16) * kRow + 16 * kk + (lane / 16) * 8);
+  float s[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      // keys 8j..8j+7 at columns 32 half + [0, 32): b0/b1 of two k16 steps
+      uint32_t kf[4];
+      ldmatrix_x4(kf, ks + (8 * j + lane % 8) * kRow + 32 * half +
+                          (lane / 8) * 8);
+      mma_bf16(s[j], qa[2 * half], kf[0], kf[1]);
+      mma_bf16(s[j], qa[2 * half + 1], kf[2], kf[3]);
+    }
+  }
+
+  // scale (and round), + bias, row max over the keys below Lk (rows g and
+  // g + 8; a row's keys are spread over the 4 threads of a quad). The
+  // tensor cores add a row's products in another order than the plain
+  // version's fp32 chain; when the bf16 rounding of the scaled score is
+  // near a tie the two can round to neighbouring values, and in the bf16
+  // softmax one such flip on a dominant key moves the context by up to
+  // ~0.03 (0.0234 seen at 64 x 12 with the padding bias). Such a score is
+  // recomputed as that chain: about one score in two thousand, which adds
+  // 2-12 % to the kernel's time (scripts/time_attention_variants.py,
+  // tie_off).
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = 8 * j + 2 * t + e % 2;
+      float x = __fmul_rn(s[j][e], scale);
+      if (kFast && key < Lk && near_bf16_tie(x))
+        x = __fmul_rn(
+            dot_chain(qh + (g + 8 * (e / 2)) * kRow, ks + key * kRow), scale);
+      if (kFast) x = round_bf16(x);
+      if (key >= Lk) {
+        x = -INFINITY;
+      } else if (has_bias) {
+        x = __fadd_rn(x, kb[key]);
+        if (kFast) x = round_bf16(x);
+      }
+      s[j][e] = x;
+      mx[e / 2] = fmaxf(mx[e / 2], x);
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+  }
+  // exponentials (in bf16 when fast), their fp32 sum (rounded when fast)
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = 0.f;
+      if (8 * j + 2 * t + e % 2 < Lk) {
+        x = __fsub_rn(s[j][e], mx[e / 2]);
+        if (kFast) x = round_bf16(x);
+        x = expf(x);
+        if (kFast) x = round_bf16(x);
+      }
+      s[j][e] = x;
+      sum[e / 2] = __fadd_rn(sum[e / 2], x);
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] = __fadd_rn(sum[r], __shfl_xor_sync(0xffffffffu, sum[r], 1));
+    sum[r] = __fadd_rn(sum[r], __shfl_xor_sync(0xffffffffu, sum[r], 2));
+    if (kFast) sum[r] = round_bf16(sum[r]);
+  }
+  // p = e * (1 / sum), rounded to bf16 once: p v's A operands. The
+  // reference divides; the correctly rounded reciprocal times e is within
+  // an fp32 step of e / sum, which moves a bf16 p only at a rounding
+  // midpoint. A division per score costs more, most where the padding
+  // bias zeroes e (a division of 0 leaves the division's fast path):
+  // 0.0779 against 0.0578 ms at B=256, 64 x 64 with the bias, on an H100
+  // SXM at 700 W (scripts/time_attention_variants.py, div). With kMask,
+  // p rounds to bf16, then p times the mask rounds once more (two bf16
+  // values, multiplied in fp32), as the plain version's p * mask.
+  const float inv[2] = {__frcp_rn(sum[0]), __frcp_rn(sum[1])};
+  uint32_t pa[KT][4];
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float p0 = __fmul_rn(s[2 * kk + half][2 * r], inv[r]);
+        float p1 = __fmul_rn(s[2 * kk + half][2 * r + 1], inv[r]);
+        if (kMask) {
+          const float2 m = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(
+                  &mk[kMask ? 2 * kk + half : 0][r]));
+          p0 = __fmul_rn(round_bf16(p0), m.x);
+          p1 = __fmul_rn(round_bf16(p1), m.y);
+        }
+        pa[kk][2 * half + r] = pack_bf16(p0, p1);
+      }
+
+  if (kWaitV) {
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+
+  // context: p times v, v's fragments transposed by ldmatrix
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk)
+#pragma unroll
+    for (int n2 = 0; n2 < D / 16; ++n2) {
+      uint32_t bv[4];
+      ldmatrix_x4_trans(bv, vs + (16 * kk + lane % 16) * kRow + 16 * n2 +
+                                (lane / 16) * 8);
+      mma_bf16(o[2 * n2], pa[kk], bv[0], bv[1]);
+      mma_bf16(o[2 * n2 + 1], pa[kk], bv[2], bv[3]);
+    }
+
+  // the context into the consumed q tile
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    *reinterpret_cast<uint32_t*>(qh + g * kRow + 8 * n + 2 * t) =
+        pack_bf16(o[n][0], o[n][1]);
+    *reinterpret_cast<uint32_t*>(qh + (g + 8) * kRow + 8 * n + 2 * t) =
+        pack_bf16(o[n][2], o[n][3]);
+  }
+}
+
+// The warp's context tile (attend_tile's qh, rows m0..m0+15 of the head)
+// out as whole 16-byte pieces of 128-byte rows: ob is the head's row 0
+// in device memory, row_stride its row stride; rows from Lq on are not
+// written.
+__device__ __forceinline__ void store_tile(bf16* ob, long long row_stride,
+                                           const bf16* qh, int m0, int Lq) {
+  const int lane = threadIdx.x % 32;
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < 16 * (D / 8) / 32; ++i) {
+    const int piece = 32 * i + lane;
+    const int r = piece / (D / 8);
+    const int c = (piece % (D / 8)) * 8;
+    if (m0 + r < Lq)
+      *reinterpret_cast<uint4*>(ob + (m0 + r) * row_stride + c) =
+          *reinterpret_cast<const uint4*>(qh + r * kRow + c);
+  }
+}
+
 // KT: key tiles of 16 (Lk padded to 16 KT); kFast: bf16 scores and
 // softmax; kMask: p times the dropout mask. Grid: B * H CTAs, CTA (b, h)
 // = (blockIdx.x / H, blockIdx.x % H), of 32 QT threads (QT = q tiles of
@@ -248,150 +425,9 @@ __global__ void __launch_bounds__(32 * (kMaxL / 16))
 
   cp_async_wait<1>();
   __syncthreads();
-
-  // scores: the tile's 16 rows against every key, fp32 accumulators
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldmatrix_x4(qa[kk], qh + (lane % 16) * kRow + 16 * kk + (lane / 16) * 8);
-  float s[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      // keys 8j..8j+7 at columns 32 half + [0, 32): b0/b1 of two k16 steps
-      uint32_t kf[4];
-      ldmatrix_x4(kf, ks + (8 * j + lane % 8) * kRow + 32 * half +
-                          (lane / 8) * 8);
-      mma_bf16(s[j], qa[2 * half], kf[0], kf[1]);
-      mma_bf16(s[j], qa[2 * half + 1], kf[2], kf[3]);
-    }
-  }
-
-  // scale (and round), + bias, row max over the keys below Lk (rows g and
-  // g + 8; a row's keys are spread over the 4 threads of a quad). The
-  // tensor cores add a row's products in another order than the plain
-  // version's fp32 chain; when the bf16 rounding of the scaled score is
-  // near a tie the two can round to neighbouring values, and in the bf16
-  // softmax one such flip on a dominant key moves the context by up to
-  // ~0.03 (0.0234 seen at 64 x 12 with the padding bias). Such a score is
-  // recomputed as that chain: about one score in two thousand, which adds
-  // 2-12 % to the kernel's time (scripts/time_attention_variants.py,
-  // tie_off).
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int key = 8 * j + 2 * t + e % 2;
-      float x = __fmul_rn(s[j][e], scale);
-      if (kFast && key < Lk && near_bf16_tie(x))
-        x = __fmul_rn(
-            dot_chain(qh + (g + 8 * (e / 2)) * kRow, ks + key * kRow), scale);
-      if (kFast) x = round_bf16(x);
-      if (key >= Lk) {
-        x = -INFINITY;
-      } else if (bias != nullptr) {
-        x = __fadd_rn(x, kb[key]);
-        if (kFast) x = round_bf16(x);
-      }
-      s[j][e] = x;
-      mx[e / 2] = fmaxf(mx[e / 2], x);
-    }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-  }
-  // exponentials (in bf16 when fast), their fp32 sum (rounded when fast)
-  float sum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      float x = 0.f;
-      if (8 * j + 2 * t + e % 2 < Lk) {
-        x = __fsub_rn(s[j][e], mx[e / 2]);
-        if (kFast) x = round_bf16(x);
-        x = expf(x);
-        if (kFast) x = round_bf16(x);
-      }
-      s[j][e] = x;
-      sum[e / 2] = __fadd_rn(sum[e / 2], x);
-    }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    sum[r] = __fadd_rn(sum[r], __shfl_xor_sync(0xffffffffu, sum[r], 1));
-    sum[r] = __fadd_rn(sum[r], __shfl_xor_sync(0xffffffffu, sum[r], 2));
-    if (kFast) sum[r] = round_bf16(sum[r]);
-  }
-  // p = e * (1 / sum), rounded to bf16 once: p v's A operands. The
-  // reference divides; the correctly rounded reciprocal times e is within
-  // an fp32 step of e / sum, which moves a bf16 p only at a rounding
-  // midpoint. A division per score costs more, most where the padding
-  // bias zeroes e (a division of 0 leaves the division's fast path):
-  // 0.0779 against 0.0578 ms at B=256, 64 x 64 with the bias, on an H100
-  // SXM at 700 W (scripts/time_attention_variants.py, div). With kMask,
-  // p rounds to bf16, then p times the mask rounds once more (two bf16
-  // values, multiplied in fp32), as the plain version's p * mask.
-  const float inv[2] = {__frcp_rn(sum[0]), __frcp_rn(sum[1])};
-  uint32_t pa[KT][4];
-#pragma unroll
-  for (int kk = 0; kk < KT; ++kk)
-#pragma unroll
-    for (int half = 0; half < 2; ++half)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float p0 = __fmul_rn(s[2 * kk + half][2 * r], inv[r]);
-        float p1 = __fmul_rn(s[2 * kk + half][2 * r + 1], inv[r]);
-        if (kMask) {
-          const float2 m = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(
-                  &mk[kMask ? 2 * kk + half : 0][r]));
-          p0 = __fmul_rn(round_bf16(p0), m.x);
-          p1 = __fmul_rn(round_bf16(p1), m.y);
-        }
-        pa[kk][2 * half + r] = pack_bf16(p0, p1);
-      }
-
-  cp_async_wait<0>();
-  __syncthreads();
-
-  // context: p times v, v's fragments transposed by ldmatrix
-  float o[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < KT; ++kk)
-#pragma unroll
-    for (int n2 = 0; n2 < D / 16; ++n2) {
-      uint32_t bv[4];
-      ldmatrix_x4_trans(bv, vs + (16 * kk + lane % 16) * kRow + 16 * n2 +
-                                (lane / 16) * 8);
-      mma_bf16(o[2 * n2], pa[kk], bv[0], bv[1]);
-      mma_bf16(o[2 * n2 + 1], pa[kk], bv[2], bv[3]);
-    }
-
-  // the context into this warp's consumed q tile, then whole rows out
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    *reinterpret_cast<uint32_t*>(qh + g * kRow + 8 * n + 2 * t) =
-        pack_bf16(o[n][0], o[n][1]);
-    *reinterpret_cast<uint32_t*>(qh + (g + 8) * kRow + 8 * n + 2 * t) =
-        pack_bf16(o[n][2], o[n][3]);
-  }
-  __syncwarp();
-  bf16* ob = out + b * st.o[0] + h * st.o[1];
-#pragma unroll
-  for (int i = 0; i < 16 * (D / 8) / 32; ++i) {
-    const int piece = 32 * i + lane;
-    const int r = piece / (D / 8);
-    const int c = (piece % (D / 8)) * 8;
-    if (m0 + r < Lq)
-      *reinterpret_cast<uint4*>(ob + (m0 + r) * st.o[2] + c) =
-          *reinterpret_cast<const uint4*>(qh + r * kRow + c);
-  }
+  attend_tile<KT, kFast, kMask, true>(qh, ks, vs, kb, bias != nullptr, mk,
+                                      Lk, scale);
+  store_tile(out + b * st.o[0] + h * st.o[1], st.o[2], qh, m0, Lq);
 }
 
 template <int KT, bool kFast, bool kMask>

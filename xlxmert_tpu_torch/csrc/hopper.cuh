@@ -1,10 +1,11 @@
 // Hopper building blocks shared by the TMA + wgmma kernels of the port
-// (int8_dense.cu, fused_block.cu, fused_ffn.cu): mbarriers with a
-// bounded wait, TMA loads, a ring of weight tiles they fill,
-// thread-block-cluster barriers and distributed shared memory, wgmma
-// with both operands in shared memory, shared-memory matrix
-// descriptors, and the weights' TMA descriptors, built once per weight
-// through cuTensorMapEncodeTiled looked up at run time (no -lcuda).
+// (int8_dense.cu, fused_block.cu, fused_ffn.cu; mha_hbatch.cu takes the
+// mbarriers): mbarriers with a bounded wait, TMA loads, a ring of weight
+// tiles they fill, thread-block-cluster barriers and distributed shared
+// memory, wgmma with both operands in shared memory, shared-memory
+// matrix descriptors, and the weights' TMA descriptors, built once per
+// weight through cuTensorMapEncodeTiled looked up at run time (no
+// -lcuda).
 #pragma once
 
 #include <cuda.h>

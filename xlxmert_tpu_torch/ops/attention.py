@@ -13,9 +13,11 @@ not at column h*D.
 
 `mha_hbatch` ports the batched-head variant of `mha_blhd` that
 `scripts/drive_attention_layout.py` measures (`core_hbatch`): the same
-function as `mha_blhd(fast=True)`, organised as the TPU kernel is, all
+function as `mha_blhd(fast=True)`, organised as the TPU kernel is, the
 heads of a batch row in one program (`csrc/mha_hbatch.cu`, its own
-kernel and launch count).
+kernel and launch count, one CTA walking a row's heads through a ring in
+shared memory by the plan of `ops/_plan.hbatch_plan`); each head runs
+`mha_blhd`'s per-tile body, so the two agree bit for bit.
 
 `mha_blhd_train` ports `xlxmert_tpu/ops/attention.py::mha_blhd_train`,
 the training path's attention: `mha_blhd`'s function with a pre-scaled
@@ -53,6 +55,7 @@ import torch
 
 from xlxmert_tpu_torch.ops._build import Kernel
 from xlxmert_tpu_torch.ops._grad import forward_only, tracks_grad
+from xlxmert_tpu_torch.ops._plan import hbatch_plan
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNEL = Kernel("mha_blhd", "mha_blhd.cu",
@@ -67,14 +70,15 @@ TRAIN_KERNEL = Kernel("mha_blhd_train", "mha_blhd_train.cu",
                       [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I]
                       + [_LL] * 6 + [ctypes.c_float, _I, _I, _P])
 
-# mha_blhd's arguments without the dtype and fast flags (bf16 only)
+# mha_blhd's arguments without the dtype and fast flags (bf16 only),
+# then the launch plan (ops/_plan.HbatchPlan.launch_args)
 HBATCH_KERNEL = Kernel("mha_hbatch", "mha_hbatch.cu",
                        [_P] * 5 + [_I] * 4 + [_LL] * 6
-                       + [ctypes.c_float, _P])
+                       + [ctypes.c_float] + [_I] * 6 + [_P])
 
 MAX_LEN = 64
 HEAD_DIM = 64
-HBATCH_MAX_HEADS = 12   # one warp per head in a CTA of at most 384 threads
+HBATCH_MAX_HEADS = 12   # the widest LXMERT configuration
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -273,9 +277,9 @@ def mha_hbatch_reference(q, k, v, bias, n_heads: int) -> torch.Tensor:
 
 def mha_hbatch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                bias: Optional[torch.Tensor], n_heads: int) -> torch.Tensor:
-    """Packed-head attention with every head of a batch row in one CTA
-    (`csrc/mha_hbatch.cu`); `mha_blhd(fast=True)`'s function and
-    operands, bf16 only, at most 12 heads. The bias ((B, Lk) or
+    """Packed-head attention with the heads of a batch row walked by one
+    CTA (`csrc/mha_hbatch.cu`); `mha_blhd(fast=True)`'s function, bits
+    and operands, bf16 only, at most 12 heads. The bias ((B, Lk) or
     (B, 1, 1, Lk) bf16) may be None: the kernel then adds nothing, which
     is exact (a bf16 0 added to a bf16 score changes no bit). Forward
     only: a backward through the result raises."""
@@ -296,12 +300,14 @@ def _mha_hbatch_forward(q, k, v, bias, n_heads: int) -> torch.Tensor:
         raise ValueError(f"mha_hbatch: takes bf16 q/k/v and at most "
                          f"{HBATCH_MAX_HEADS} heads; got {q.dtype}, "
                          f"{n_heads} heads")
+    plan = hbatch_plan(q.shape[0], n_heads, q.shape[1], k.shape[1])
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     HBATCH_KERNEL.launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if bias is None else bias.data_ptr(), out.data_ptr(),
-        *_blhd_args(q, k, v, n_heads, True)[:-2], stream)
+        *_blhd_args(q, k, v, n_heads, True)[:-2], *plan.launch_args(),
+        stream)
     return out
 
 
