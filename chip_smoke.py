@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed 0] [--out runs/chip_smoke.json]
 
 Phases, each of which fails the script on error:
-  (a) device and build: the card's name, count and power limit; the seven
+  (a) device and build: the card's name, count and power limit; the eight
       CUDA kernels built from csrc/ in parallel (nvcc, -Xptxas -v);
   (b) kernels: each kernel against its plain PyTorch version on the card
       at every shape the paths give it (serving at B=256 for each bucket
@@ -36,7 +36,12 @@ Phases, each of which fails the script on error:
       function) at (h)'s four attention shapes at B=256 and the
       calibration batch, with and without a bias, beside SDPA and B1's
       times at the same shapes; each case logs its launch plan and the
-      CTAs an SM holds (one wave at B=256, gated). fused_mha's
+      CTAs an SM holds (one wave at B=256, gated). mha_int8 is held to
+      its plain version at every attention shape of (o) (B=256 at each
+      bucket length, B=8), with and without a bias, each site's scale
+      calibrated on its tensor: every element within v's scale + 2^-7
+      |plain|, at least INT8_ATT_EQUAL bit-equal; beside it mha_blhd's
+      time at the same shapes (the bf16 route it replaces). fused_mha's
       gradients on the card (kernel forward, einsum backward) are held
       to the CPU's (the bf16 bias's gradient in the fp32 case element by
       element to 2^-7 |r| plus its sum's fp32 accumulation bound), and
@@ -46,7 +51,10 @@ Phases, each of which fails the script on error:
       from --seed: a 512-image bf16 catalog in device memory, 2,048
       synthetic questions whose token lengths follow VQA_LENGTH_MIX,
       calibration on 256 of them, bucketed serving (8,12,16,20) at
-      B=256 through cli/serve.serve. Every kernel's launch count is
+      B=256 through cli/serve.serve, tokenized by the native batch
+      encoder (data/fast_tokenizer, gated native; its rows/s and the
+      Python tokenizer's on ENCODE_ROWS rows, with the host CPU's
+      model name). Every kernel's launch count is
       reset before and read after, and must be 34 (attention) and 129
       (int8 dense) per forward. One batch of 8 queries per bucket, at
       its bucket length, then runs through the same engine moved to the
@@ -107,6 +115,10 @@ Phases, each of which fails the script on error:
       every mha_blhd_train launch; each task's dropout-free step on the
       card against the CPU with injected masks at B=8, held to
       STEP_BARS, with the same parameters left without a gradient;
+      chained_train_step(CHAIN_TASK, CHAIN_K) on the pallas_blhd route
+      (CHAIN_K x 34 launches a call) held to CHAIN_K sequential steps
+      within two sequential runs' spread, and timed as bench.py
+      measure_pretrain times it, beside the sequential examples/s;
   (j) text-to-image at bench.py Config #2's widths (LxmertConfig(),
       10,000 random centroids randn x 0.1, B=64, text 20, an 8x8 grid,
       the SPADE generator at base 32, target 256, codebook 256, bf16),
@@ -192,9 +204,21 @@ Phases, each of which fails the script on error:
       all, the all-reduce MiB and ms a step, the pipeline's measured
       bubble; every rank's launches summed. Phase (b) holds
       mha_blhd_train to its plain version at the tp step's 6 heads;
+  (o) int8-attention serving on (c)'s weights, catalog and questions
+      through cli/serve.serve, int8_attention(True) turned on in
+      on_calibrated: the calibration forwards launch as in (c), each
+      serving forward 34 mha_int8, 0 mha_blhd and 129 int8_dense; the
+      same tree's logits with the switch on against off (the bf16
+      attention of (c)) on a batch of B=256 a bucket (cosine > 0.99 a
+      bucket, argmax agreement >= 0.8, and the answers against (c)'s at
+      the same bar: the JAX test's bars); one batch of 8 a bucket on the
+      CPU held to the card as in (c), the argmax share at the same 0.8;
+      steady q/s beside (c)'s; an
+      uncalibrated tree with the switch on must raise;
   (d) one JSON line listing the kernels (times per serving forward of
       the length mix; mha_blhd_train's per training step, mha_hbatch's
-      per layout forward), then the device line last.
+      per layout forward, mha_int8's per (o) forward), then the device
+      line last.
 
 Per-shape numbers go to --out. Without a CUDA device, or outside the
 repository, the script exits non-zero and prints no result.
@@ -231,6 +255,9 @@ CALIB_BATCH = 8       # cli/serve calibrates on batches of 8
 # kernel's launches in the first path that runs it
 PER_FORWARD = {
     "int8": {"mha_blhd": 34, "int8_dense": 129},
+    # (o): serving forwards with int8_attention(True) (its calibration
+    # forwards are the int8 engine's)
+    "int8+int8_attention": {"mha_int8": 34, "int8_dense": 129},
     "int8+fused_block": {"fused_block": 34, "mha_blhd": 34,
                          "int8_dense": 5},
     "bf16": {"mha_blhd": 34},
@@ -436,7 +463,9 @@ KINDS = {"mha_blhd": forward_kinds() + check_kinds() + FT_EVAL_KINDS,
                             "pt check float32", "pt check bfloat16",
                             "n dp step"],
          # (h)'s hbatch forwards at B=BATCH, text LAYOUT_TEXT
-         "mha_hbatch": [f"layout L={LAYOUT_TEXT}"]}
+         "mha_hbatch": [f"layout L={LAYOUT_TEXT}"],
+         # (o)'s serving forwards and its card-vs-CPU check forwards
+         "mha_int8": forward_kinds()[:-1] + check_kinds()}
 
 
 def attention_shapes(cfg, B):
@@ -841,6 +870,97 @@ def check_hbatch(torch, F, attention, cfg, rng, log):
             f"slots, {plan.warps} warps, {plan.smem} B; {on_sm} CTAs an SM "
             f"(model {row['resident_model']}), {waves} wave(s)"
             + not_queued_note(row))
+    return rows
+
+
+# mha_int8 against its plain version: the two differ only through expf
+# and the softmax sum's order, which can move one p8 by 1 and so an
+# output by at most v's scale; at least this share must be bit-equal
+INT8_ATT_EQUAL = 0.999
+
+
+def mha_int8_cases(cfg, B):
+    """(batch, Lq, Lk, with_bias, uses) of mha_int8: every attention
+    shape of (o)'s serving forwards at B and of its card-vs-CPU check
+    forwards at CALIB_BATCH (the calibration forwards run with the
+    switch off), with and without a bias; `uses` is empty but where the
+    case is the path's."""
+    for (b, lq, lk), (path_bias, uses) in attention_shapes(cfg, B).items():
+        uses = {k: n for k, n in uses.items() if k in KINDS["mha_int8"]}
+        for bias in (True, False):
+            yield b, lq, lk, bias, uses if bias == path_bias else {}
+
+
+def int8_scales(x) -> tuple:
+    """(inv, scale) of a site calibrated on x: ops/quant.with_act_scale
+    on max |x|."""
+    from xlxmert_tpu_torch.ops.quant import make_act_scale, with_act_scale
+
+    s = with_act_scale(make_act_scale(), float(x.float().abs().amax()))
+    return s.inv, s.scale
+
+
+def check_mha_int8(torch, F, attention, attention_int8, cfg, rng, log):
+    """mha_int8 against mha_int8_reference on column slices of fused
+    bf16 projections with a (B, 1, 1, Lk) bias or none, each site's scale
+    calibrated on its tensor: every element within v's scale + 2^-7 of
+    |plain| and at least INT8_ATT_EQUAL of them bit-equal. At the cases
+    the path launches, beside the kernel's time (queued and back to
+    back): the plain version's, B1's
+    (mha_blhd(fast=True), the bf16 route it replaces) at the same shapes,
+    and the bound (B1's: the same bytes; the int8 operations far
+    below). No PyTorch call computes batched int8 products: no library
+    time."""
+    H, HD = cfg.num_attention_heads, cfg.hidden_size
+    D = HD // H
+    rows = []
+    for B, lq, lk, with_bias, uses in mha_int8_cases(cfg, BATCH):
+        q, k, v, bias = _qkv_bias(torch, rng, B, lq, lk, HD, torch.bfloat16,
+                                  with_bias)
+        bias = None if bias is None else bias[:, None, None]
+        inv, scale = zip(*(int8_scales(t) for t in (q, k, v)))
+        args = (q, k, v, bias, H, inv, scale)
+        out = attention_int8.mha_int8(*args)
+        ref = attention_int8.mha_int8_reference(*args)
+        torch.cuda.synchronize()
+        d = (out.float() - ref.float()).abs()
+        err = d.max().item()
+        over = (d - (scale[2] + 2.0 ** -7 * ref.float().abs())).max().item()
+        equal = (d == 0).float().mean().item()
+        what = f"mha_int8 B={B} {lq}x{lk} bias={with_bias}"
+        if not (over <= 0 and equal >= INT8_ATT_EQUAL) \
+                or not torch.isfinite(out).all():
+            fail(f"{what}: max abs err {err} (v's scale {scale[2]}; "
+                 f"{over} beyond v's scale + 2^-7 |plain|), "
+                 f"{equal:.4%} bit-equal (< {INT8_ATT_EQUAL:.1%})")
+        b1 = (q, k, v, bias, H, True)
+        # timed where the path launches it (the other bias variant of a
+        # shape is checked, not timed)
+        times = dict.fromkeys(("enqueue_ms", "ms", "plain_ms", "b1_ms"))
+        times["not_queued"] = []
+        if uses:
+            times = {"enqueue_ms": time_ms(
+                torch, lambda: attention_int8.mha_int8(*args)),
+                     **queued_times(torch, {
+                         "ms": lambda: attention_int8.mha_int8(*args),
+                         "plain_ms": lambda:
+                             attention_int8.mha_int8_reference(*args),
+                         "b1_ms": lambda: attention.mha_blhd(*b1)})}
+        nbytes = (B * (2 * lq + 2 * lk) * HD * 2
+                  + (0 if bias is None else bias.numel() * 2))
+        row = {"Lq": lq, "Lk": lk, "bias": with_bias, "dtype": "bfloat16",
+               "B": B, "max_abs_err": err, "v_scale": scale[2],
+               "beyond_tol": over, "bit_equal": equal, **times,
+               "library_ms": None, "uses": uses,
+               **bound(nbytes, 4.0 * B * H * lq * lk * D, "int8")}
+        rows.append(row)
+        timed = ("" if not uses else
+                 f"  kernel {row['ms']:.4f} ms (back to back "
+                 f"{row['enqueue_ms']:.4f})  plain {row['plain_ms']:.4f}  "
+                 f"mha_blhd {row['b1_ms']:.4f}  bound {row['bound_ms']:.4f} "
+                 f"({row['bound_by']})" + not_queued_note(row))
+        log(f"  {what:35} err {err:.2e} (v's scale {scale[2]:.2e}), "
+            f"{equal:.4%} bit-equal" + timed)
     return rows
 
 
@@ -1322,6 +1442,52 @@ def cosine(a, b) -> float:
     return float(a @ b / (a.norm() * b.norm() + 1e-12))
 
 
+ENCODE_ROWS = 4096    # rows of the tokenizer's rate measurement
+
+
+def host_cpu_name() -> str:
+    """The host CPU's model name (/proc/cpuinfo, else lscpu), with its
+    core count."""
+    import platform
+
+    name = None
+    try:
+        with open("/proc/cpuinfo") as f:
+            name = next((line.split(":", 1)[1].strip() for line in f
+                         if line.lower().startswith("model name")), None)
+    except OSError:
+        pass
+    if not name:
+        try:
+            out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                                 timeout=30).stdout
+            name = next((line.split(":", 1)[1].strip()
+                         for line in out.splitlines()
+                         if line.lower().startswith("model name")), None)
+        except (OSError, subprocess.SubprocessError):
+            pass
+    return (f"{name or platform.processor() or 'model not reported'} "
+            f"({platform.machine()}), {os.cpu_count()} cores")
+
+
+def encode_rates(tokenizer, questions, rows=ENCODE_ROWS) -> dict:
+    """Rows/s of the native and the Python batch encoder on `rows` of the
+    questions (cycled), at the serving length; the two must give the
+    same ids."""
+    texts = [questions[i % len(questions)]["sent"] for i in range(rows)]
+    t0 = time.perf_counter()
+    native = tokenizer.encode_batch(texts, max(BUCKETS))
+    t1 = time.perf_counter()
+    python = tokenizer.py.encode_batch(texts, max(BUCKETS))
+    t2 = time.perf_counter()
+    if not (native == python).all():
+        fail("FastTokenizer's ids differ from the Python tokenizer's")
+    return {"rows": rows, "native": tokenizer.native,
+            "native_rows_per_s": rows / (t1 - t0),
+            "python_rows_per_s": rows / (t2 - t1),
+            "host_cpu": host_cpu_name()}
+
+
 class Setup:
     """What every path phase serves: random weights in the flax layout
     from --seed (LxmertConfig() unless `cfg`, 3,129 answers), an
@@ -1333,7 +1499,7 @@ class Setup:
 
     def __init__(self, torch, args, log, cfg=None, device="cuda"):
         from xlxmert_tpu_torch.core.config import LxmertConfig
-        from xlxmert_tpu_torch.data.tokenization import Tokenizer
+        from xlxmert_tpu_torch.data.fast_tokenizer import FastTokenizer
         from xlxmert_tpu_torch.serving import lxmert_int8 as engine
         from xlxmert_tpu_torch.serving.feature_cache import FeatureCache
 
@@ -1358,10 +1524,20 @@ class Setup:
             with open(vocab, "w") as f:
                 f.write("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]",
                                    "[MASK]"] + words) + "\n")
-            self.tokenizer = Tokenizer(vocab)
+            # the serving CLI's tokenizer: the native batch encoder
+            self.tokenizer = FastTokenizer(vocab)
+        if device == "cuda" and not self.tokenizer.native:
+            fail(f"FastTokenizer is not native on this host: "
+                 f"{self.tokenizer.build_error}")
         self.questions = synthetic_questions(QUESTIONS, IMAGES, words,
                                              engine.VQA_LENGTH_MIX,
                                              args.seed)
+        self.encode_rates = encode_rates(self.tokenizer, self.questions)
+        r = self.encode_rates
+        log(f"  tokenizer: native {self.tokenizer.native}; "
+            f"{r['rows']} rows encode at {r['native_rows_per_s']:.0f} rows/s "
+            f"natively, {r['python_rows_per_s']:.0f} rows/s in Python "
+            f"(host CPU: {r['host_cpu']})")
         self.label2ans = [f"answer_{i}" for i in range(self.n_answers)]
 
     def serve(self, torch, kernels, **kw):
@@ -1397,9 +1573,9 @@ class Setup:
         return res, launches, peak, wall, {a["question_id"]: a["answer"]
                                            for a in answers}
 
-    def check_batches(self, torch):
-        """One batch of CALIB_BATCH queries per bucket, at its bucket
-        length: (L, ids, mask, feats, pos) on the CPU."""
+    def check_batches(self, torch, n=CALIB_BATCH):
+        """One batch of `n` queries per bucket, at its bucket length:
+        (L, ids, mask, feats, pos) on the CPU."""
         import numpy as np
 
         from xlxmert_tpu_torch.serving.feature_cache import FeatureCache
@@ -1411,7 +1587,7 @@ class Setup:
         pos = torch.from_numpy(box_position(8)).to(torch.bfloat16)[None]
         batches, low = [], 0
         for L in BUCKETS:
-            rows = np.flatnonzero((n_tok > low) & (n_tok <= L))[:CALIB_BATCH]
+            rows = np.flatnonzero((n_tok > low) & (n_tok <= L))[:n]
             low = L
             ids = torch.from_numpy(full[rows, :L].astype(np.int64))
             picks = torch.from_numpy(self.cache.indices(
@@ -1433,13 +1609,15 @@ def check_launches(path: str, launches, forwards: int) -> None:
                  f"forwards, expected {per} per forward")
 
 
-def card_vs_cpu(torch, batches, card, host, n_answers, log):
+def card_vs_cpu(torch, batches, card, host, n_answers, log,
+                agree=ARGMAX_AGREE):
     """Holds the card's logits to the CPU's, one batch per bucket: random
     weights leave near-ties among 3,129 answers that the glue's rounding
     (plain PyTorch on either side) can swap, so the answers must agree on
-    ARGMAX_AGREE of the queries, the bar the CPU tests set between the
-    port and the JAX package, and each swap must be a near-tie on the CPU
-    (the top two of 3,129 normal draws lie ~0.25 sd apart)."""
+    `agree` of the queries (ARGMAX_AGREE: the bar the CPU tests set
+    between the port and the JAX package), and each swap must be a
+    near-tie on the CPU (the top two of 3,129 normal draws lie ~0.25 sd
+    apart)."""
     import numpy as np
 
     checks, n_same, n_all = {}, 0, 0
@@ -1467,9 +1645,9 @@ def card_vs_cpu(torch, batches, card, host, n_answers, log):
         if any(m > NEAR_TIE_SD for m in margins):
             fail(f"L={L}: the card swapped an answer that is no near-tie "
                  f"on the CPU (margins {margins} sd > {NEAR_TIE_SD})")
-    if n_same < ARGMAX_AGREE * n_all:
+    if n_same < agree * n_all:
         fail(f"card and CPU answers agree on {n_same}/{n_all} queries, "
-             f"fewer than {ARGMAX_AGREE:.0%}")
+             f"fewer than {agree:.0%}")
     return checks
 
 
@@ -1649,6 +1827,160 @@ def run_fused_path(torch, args, kernels, log, cfg=None, device="cuda",
         log(f"  fused answers equal to the int8 path's (c): "
             f"{same}/{len(answers)}")
         out["answers_equal_to_int8"] = same
+    return out
+
+
+# (o): int8 attention against the bf16-attention int8 engine on the same
+# calibrated tree: the JAX test's bars (tests/test_int8_serving.py:251-254)
+INT8_ATT_COSINE = 0.99
+INT8_ATT_AGREE = 0.8
+
+
+def uncalibrated_refuses(torch, engine, device) -> str:
+    """A freshly prepared (uncalibrated) tree with int8_attention on must
+    raise, not serve: returns the error's text, fails otherwise. A narrow
+    random tree: the check never reaches a kernel."""
+    from xlxmert_tpu_torch.core.config import LxmertConfig
+
+    cfg = LxmertConfig(vocab_size=64, hidden_size=128, num_attention_heads=2,
+                       intermediate_size=256, l_layers=1, x_layers=1,
+                       r_layers=1, visual_feat_dim=32)
+    bert, head = engine.random_params(cfg, 4, seed=0)
+    qp = engine.prepare_params(bert, cfg, device)
+    hqp = engine.prepare_answer_head(head, device)
+    ids = torch.ones(2, 4, dtype=torch.long, device=device)
+    feats = torch.zeros(2, 4, 32, device=device)
+    pos = torch.zeros(2, 4, 4, device=device)
+    engine.int8_attention(True)
+    try:
+        with torch.inference_mode():
+            engine.vqa_forward(qp, hqp, ids, feats, pos, n_heads=2)
+    except RuntimeError as e:
+        if "calibrated" in str(e):
+            return str(e)
+        raise
+    finally:
+        engine.int8_attention(False)
+    fail("int8_attention(True) on an uncalibrated tree served a forward")
+
+
+def run_int8_attention_path(torch, args, kernels, log, cfg=None,
+                            device="cuda", setup=None, int8_path=None,
+                            int8_answers=None):
+    """Phase (o): cli/serve.serve with int8_attention(True) turned on in
+    `on_calibrated` (off again in a finally): the calibration forwards'
+    launches (the int8 engine's) and the serving forwards' (34 mha_int8,
+    0 mha_blhd, 129 int8_dense) checked apart; the same calibrated tree
+    with the switch on against itself with the switch off (the
+    bf16-attention engine of (c)) on one batch of BATCH a bucket: logits
+    cosine > INT8_ATT_COSINE a bucket, argmax agreement >= INT8_ATT_AGREE
+    in all, and the answers against `int8_answers` ((c)'s) at the same
+    bar; the tree on the CPU (mha_int8_reference) held to the card as in
+    (c) but for the argmax share, INT8_ATT_AGREE (each swap a near-tie);
+    an uncalibrated tree with the switch on must raise. Steady q/s
+    beside (c)'s (`int8_path`). Returns its numbers."""
+    from xlxmert_tpu_torch.serving import lxmert_int8 as engine
+
+    setup = setup or Setup(torch, args, log, cfg, device)
+    cfg = setup.cfg
+    calib = {}
+
+    def on_calibrated():
+        calib.update((k.name, k.launches) for k in kernels)
+        for k in kernels:
+            k.launches = 0
+        engine.int8_attention(True)
+
+    try:
+        res, launches, peak, wall, answers = setup.serve(
+            torch, kernels, calib_samples=CALIB_SAMPLES,
+            on_calibrated=on_calibrated)
+    finally:
+        engine.int8_attention(False)
+    check_launches("int8", calib, res["calib_forwards"])
+    check_launches("int8+int8_attention", launches, res["serve_forwards"])
+    base_qps = None if int8_path is None else int8_path["steady_qps"]
+    log(f"  served {res['answers']} answers in {res['calib_forwards']} "
+        f"calibration + {res['serve_forwards']} serving forwards, wall "
+        f"{wall:.1f}s; steady-state {res['steady_qps']:.1f} q/s"
+        + ("" if base_qps is None else
+           f" (bf16 attention, (c): {base_qps:.1f} q/s)")
+        + f", peak device memory {peak / 2**30:.2f} GiB")
+    for what, got, n in (("calibration", calib, res["calib_forwards"]),
+                         ("serving", launches, res["serve_forwards"])):
+        log(f"  {what} launches: " + ", ".join(
+            f"{k} {v} ({v // n} per forward)" for k, v in got.items() if v))
+
+    qp, hqp = res["engine"]
+
+    def logits(batches, device, int8_att):
+        out = []
+        engine.int8_attention(int8_att)
+        try:
+            with torch.inference_mode():
+                for _, ids, mask, feats, pos in batches:
+                    out.append(engine.vqa_forward(
+                        qp, hqp, ids.to(device), feats.to(device),
+                        pos.to(device), attention_mask=mask.to(device),
+                        n_heads=cfg.num_attention_heads).cpu())
+        finally:
+            engine.int8_attention(False)
+        return out
+
+    # the same calibrated tree, int8 attention against bf16 attention
+    full = setup.check_batches(torch, BATCH)
+    on, off = logits(full, device, True), logits(full, device, False)
+    agreement, n_same, n_all = {}, 0, 0
+    for (L, *_), a, b in zip(full, on, off):
+        cos = cosine(a, b)
+        same = int((a.argmax(-1) == b.argmax(-1)).sum())
+        n_same, n_all = n_same + same, n_all + len(a)
+        agreement[L] = {"cosine": cos, "argmax_equal": same,
+                        "queries": len(a)}
+        log(f"    L={L}: int8 vs bf16 attention, cosine {cos:.6f}, argmax "
+            f"equal on {same}/{len(a)}")
+        if not (torch.isfinite(a).all() and cos > INT8_ATT_COSINE):
+            fail(f"(o) L={L}: int8-attention logits against bf16 "
+                 f"attention's: cosine {cos} (bar {INT8_ATT_COSINE})")
+    if n_same < INT8_ATT_AGREE * n_all:
+        fail(f"(o): int8 and bf16 attention agree on {n_same}/{n_all} "
+             f"answers, fewer than {INT8_ATT_AGREE:.0%}")
+    out = {"launches": {k: calib.get(k, 0) + n for k, n in launches.items()},
+           "calibration_launches": calib, "serving_launches": launches,
+           "forwards": res["forwards"],
+           "calib_forwards": res["calib_forwards"],
+           "serve_forwards": res["serve_forwards"],
+           "answers": res["answers"], "steady_qps": res["steady_qps"],
+           "total_qps": res["total_qps"], "bf16_attention_qps": base_qps,
+           "peak_bytes": peak, "against_bf16_attention": agreement,
+           "argmax_agreement": n_same / n_all}
+    if int8_answers is not None:
+        same = sum(a == int8_answers[q] for q, a in answers.items())
+        out["answers_equal_to_int8"] = same
+        log(f"  answers equal to (c)'s (bf16 attention): {same}/"
+            f"{len(answers)}")
+        if same < INT8_ATT_AGREE * len(answers):
+            fail(f"(o): {same}/{len(answers)} answers equal to (c)'s, "
+                 f"fewer than {INT8_ATT_AGREE:.0%}")
+
+    # the same engine on the CPU (mha_int8_reference) against the card
+    batches = setup.check_batches(torch)
+    card = logits(batches, device, True)
+    qp.to("cpu")
+    hqp.to("cpu")
+    t0 = time.time()
+    host = logits(batches, "cpu", True)
+    log(f"  card vs CPU with int8 attention, {CALIB_BATCH} queries per "
+        f"bucket (CPU forwards {time.time() - t0:.1f}s):")
+    # int8 attention turns a bf16 step of the glue's rounding into an
+    # int8 step of q, k or v, and so swaps more near-ties than (c): its
+    # own route's bar (the JAX test's), each swap still a near-tie
+    out["card_vs_cpu"] = card_vs_cpu(torch, batches, card, host,
+                                     setup.n_answers, log,
+                                     agree=INT8_ATT_AGREE)
+    out["uncalibrated_error"] = uncalibrated_refuses(torch, engine, device)
+    log(f"  an uncalibrated tree with the switch on raises: "
+        f"{out['uncalibrated_error'][:60]}...")
     return out
 
 
@@ -2554,6 +2886,108 @@ def profile_check(torch, setup, kernels, params, centroids, args, device,
     return out
 
 
+CHAIN_K = 8          # steps of one chained call (bench.py measure_pretrain)
+CHAIN_TASK = "vis_mask"
+# two sequential runs on the card differ by up to an ulp of the largest
+# parameters (atomics in the backward): the chained run is held to their
+# spread plus this share of the largest |value|, a few fp32 ulps; a wrong
+# batch, a missed reseed or schedule step moves parameters by an update
+# (~ lr = 1e-4)
+CHAIN_ULPS = 2.0 ** -20
+
+
+def chained_check(torch, setup, kernels, data, params, centroids, args,
+                  device, log) -> dict:
+    """PretrainEngine.chained_train_step(CHAIN_TASK, CHAIN_K) on the
+    pallas_blhd route at PT_BATCH, on one placed batch: from a fresh
+    state, one call (CHAIN_K x 34 mha_blhd_train launches) against
+    CHAIN_K sequential train_step calls from another (run 1), each
+    fetching its loss; the parameters and the mean loss must lie within
+    the spread of two such sequential runs (run 2), as the exact resume
+    is held, plus CHAIN_ULPS of their largest |value|. Then timed as
+    bench.py measure_pretrain times it: examples/s = B / (the best of 3
+    calls / CHAIN_K), beside run 1's sequential examples/s."""
+    from xlxmert_tpu_torch.tasks.pretrain import PretrainEngine
+
+    host = next(iter(data[0].batches(PT_BATCH)))
+    first = {k.name: k.launches for k in kernels}
+
+    def fresh():
+        tcfg = pretrain_config(setup, "unused", args.seed)
+        eng = PretrainEngine(tcfg, setup.cfg, total_steps=4 * CHAIN_K,
+                             train_attention="pallas_blhd", device=device)
+        return eng, eng.create_state(args.seed, params)
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def flat_params(state):
+        return torch.cat([p.detach().reshape(-1).float()
+                          for p in state.model.parameters()])
+
+    def sequential():
+        eng, state = fresh()
+        sync()
+        t0 = time.perf_counter()
+        losses = [float(eng.train_step(state, host, CHAIN_TASK, centroids)
+                        ["total_loss"]) for _ in range(CHAIN_K)]
+        wall = time.perf_counter() - t0
+        return flat_params(state), sum(losses) / CHAIN_K, wall
+
+    seq1, loss1, seq_wall = sequential()
+    seq2, loss2, _ = sequential()
+    eng, state = fresh()
+    fn = eng.chained_train_step(CHAIN_TASK, CHAIN_K)
+    batch = eng.place(host)
+    before = {k.name: k.launches for k in kernels}
+    state, mean = fn(state, batch, centroids)
+    chained_loss = float(mean)
+    launches = {k.name: k.launches - before[k.name] for k in kernels}
+    check_launches("pretrain pallas_blhd", launches, CHAIN_K)
+    got = flat_params(state)
+    spread = (seq2 - seq1).abs().max().item()
+    moved = (got - seq1).abs().max().item()
+    loss_spread, loss_moved = abs(loss2 - loss1), abs(chained_loss - loss1)
+    bars = (spread + CHAIN_ULPS * seq1.abs().max().item(),
+            loss_spread + CHAIN_ULPS * abs(loss1))
+    if not (math.isfinite(chained_loss) and moved <= bars[0]
+            and loss_moved <= bars[1]):
+        fail(f"chained_train_step: parameters {moved} and mean loss "
+             f"{loss_moved} from {CHAIN_K} sequential steps', beyond two "
+             f"sequential runs' spread ({spread}, {loss_spread}) + "
+             f"{CHAIN_ULPS:g} of the largest |value| ({bars})")
+    del seq1, seq2, got
+    best = float("inf")
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        state, mean = fn(state, batch, centroids)
+        float(mean)
+        best = min(best, time.perf_counter() - t0)
+    out = {"k": CHAIN_K, "task": CHAIN_TASK, "batch": PT_BATCH,
+           "call_launches": launches, "param_diff": moved,
+           "param_spread": spread,
+           "loss_diff": loss_moved, "loss_spread": loss_spread,
+           "bars": bars,
+           "bit_equal": moved == 0 and loss_moved == 0,
+           "best_call_s": best,
+           "examples_per_s": PT_BATCH / (best / CHAIN_K),
+           "sequential_examples_per_s": PT_BATCH * CHAIN_K / seq_wall}
+    log(f"  chained_train_step({CHAIN_TASK!r}, {CHAIN_K}) at B={PT_BATCH}: "
+        f"{out['examples_per_s']:.1f} examples/s (best of 3 calls "
+        f"{best * 1e3:.1f} ms), {CHAIN_K} sequential train_step calls "
+        f"{out['sequential_examples_per_s']:.1f} examples/s; launches a "
+        f"call: " + ", ".join(f"{k} {n}" for k, n in launches.items() if n)
+        + f"; parameters {moved:.3e} and mean loss {loss_moved:.3e} from "
+        f"the sequential run's (two sequential runs: {spread:.3e}, "
+        f"{loss_spread:.3e}; bars {bars[0]:.3e}, {bars[1]:.3e})")
+    # the sequential runs' steps and the four calls'
+    out["launches"] = {k.name: k.launches - first[k.name] for k in kernels}
+    check_launches("pretrain pallas_blhd", out["launches"], 6 * CHAIN_K)
+    return out
+
+
 def run_pretrain_path(torch, args, kernels, log, cfg=None, device="cuda",
                       setup=None):
     """Phase (i): pre-training through cli/pretrain.pretrain() on
@@ -2598,7 +3032,9 @@ def run_pretrain_path(torch, args, kernels, log, cfg=None, device="cuda",
                                          centroids, args, device, log)
     out["profile"] = profile_check(torch, setup, kernels, params, centroids,
                                    args, device, log)
-    for part in ("full_state", "profile"):
+    out["chained"] = chained_check(torch, setup, kernels, data, params,
+                                   centroids, args, device, log)
+    for part in ("full_state", "profile", "chained"):
         for k, n in out[part]["launches"].items():
             launches[k] += n
     check = host_masked(next(iter(data[0].batches(PT_CHECK))), args.seed,
@@ -4362,12 +4798,15 @@ def rank_cases(rank: int, calls) -> list:
 
 
 def port_kernels() -> list:
-    """The port's seven kernels, in the kernels line's order."""
-    from xlxmert_tpu_torch.ops import attention, ffn, fused_block, int8_matmul
+    """The port's eight kernels, in the kernels line's order."""
+    from xlxmert_tpu_torch.ops import (
+        attention, attention_int8, ffn, fused_block, int8_matmul,
+    )
 
     return [attention.KERNEL, int8_matmul.KERNEL, ffn.KERNEL,
             attention.FUSED_MHA_KERNEL, fused_block.KERNEL,
-            attention.TRAIN_KERNEL, attention.HBATCH_KERNEL]
+            attention.TRAIN_KERNEL, attention.HBATCH_KERNEL,
+            attention_int8.KERNEL]
 
 
 def launch_counts(kernels) -> dict:
@@ -4972,7 +5411,7 @@ def main(argv=None) -> int:
 
         from xlxmert_tpu_torch.core.config import LxmertConfig
         from xlxmert_tpu_torch.ops import _build, attention, ffn, int8_matmul
-        from xlxmert_tpu_torch.ops import fused_block, quant
+        from xlxmert_tpu_torch.ops import attention_int8, fused_block, quant
         from xlxmert_tpu_torch.serving import lxmert_int8 as engine
     except ImportError as e:
         fail(f"cannot import the port ({e}): run from the repository root")
@@ -5020,6 +5459,11 @@ def main(argv=None) -> int:
             "mha_blhd_train": check_train_attention(torch, F, attention, cfg,
                                                     rng, log),
             "mha_hbatch": check_hbatch(torch, F, attention, cfg, rng, log)}
+    # (o)'s int8 attention, with a generator of its own (the cases above
+    # draw as they did before it existed)
+    int8_att_rng = torch.Generator(device="cuda").manual_seed(args.seed + 4)
+    rows["mha_int8"] = check_mha_int8(torch, F, attention, attention_int8,
+                                      cfg, int8_att_rng, log)
     # (n)'s tensor-parallel steps: H/2 heads a rank, with a generator of
     # their own (the cases above draw as they did before these existed)
     tp_rng = torch.Generator(device="cuda").manual_seed(args.seed + 2)
@@ -5096,6 +5540,13 @@ def main(argv=None) -> int:
         "weights and questions")
     fused_path = run_fused_path(torch, args, kernels, log, setup=setup,
                                 int8_answers=int8_answers)
+    log("(o) int8-attention serving (int8_attention(True) after "
+        "calibration): the same weights and questions")
+    t0 = time.time()
+    int8_att_path = run_int8_attention_path(
+        torch, args, kernels, log, setup=setup, int8_path=path,
+        int8_answers=int8_answers)
+    log(f"  phase (o) took {time.time() - t0:.1f}s")
     log(f"(g) fine-tuning: full width, {setup.n_answers} answers, B="
         f"{FT_BATCH}, text {FT_TEXT}, bf16 mixed precision, random weights")
     ft = run_finetune_path(torch, args, kernels, log, setup=setup)
@@ -5166,6 +5617,7 @@ def main(argv=None) -> int:
     dist = run_distributed_path(torch, args, kernels, log, card=card)
     log(f"  phase (n) took {dist['wall_s']:.1f}s")
     paths = {"int8": path, **bf16_paths, "int8+fused_block": fused_path,
+             "int8+int8_attention": int8_att_path,
              "finetune": ft, "layout": layout, "pretrain": pt,
              "sample": sample, "gan": gan, "factory": factory, "fid": fid,
              "distributed": dist}
@@ -5186,7 +5638,10 @@ def main(argv=None) -> int:
                "mha_blhd_train": ("xlxmert_tpu_torch/csrc/mha_blhd_train.cu",
                                   "xlxmert_tpu/ops/attention.py:354"),
                "mha_hbatch": ("xlxmert_tpu_torch/csrc/mha_hbatch.cu",
-                              "scripts/drive_attention_layout.py:183")}
+                              "scripts/drive_attention_layout.py:183"),
+               # no pallas_call: the int8 einsums of _attention_core_int8
+               "mha_int8": ("xlxmert_tpu_torch/csrc/mha_int8.cu",
+                            "xlxmert_tpu/serving/lxmert_int8.py:276")}
     per = {"mha_blhd_train": "ft vqa", "mha_hbatch": f"layout L={LAYOUT_TEXT}"}
     summary = []
     for name, (src, replaces) in sources.items():
@@ -5230,8 +5685,10 @@ def main(argv=None) -> int:
                            "training step at B=32 ('ft vqa'; library: SDPA "
                            "with dropout_p, its own mask), mha_hbatch's per "
                            "int8 forward of the layout driver at B=256, "
-                           "L=20; launches are summed over the path runs in "
-                           "'paths'"},
+                           "L=20, mha_int8's per serving forward of (o) "
+                           "(no library call; b1_ms: mha_blhd at the same "
+                           "shapes); launches are summed over the path "
+                           "runs in 'paths'"},
                   f, indent=1)
     log(f"(d) per-shape numbers in {args.out}; kernel times per serving "
         f"forward at B={BATCH}, weighted by VQA_LENGTH_MIX; launches per "

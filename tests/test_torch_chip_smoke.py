@@ -562,8 +562,10 @@ def test_pretrain_phase_launches_exactly_the_kernel_phase_cases(monkeypatch):
     (shape, type, mask) cases: 34 a full-width step, only on the
     "pallas_blhd" route."""
     cfg = LxmertConfig(**SMALL)
-    # a smaller pre-training batch, which no other training case shares
+    # a smaller pre-training batch, which no other training case shares,
+    # and shorter chained calls
     monkeypatch.setattr(chip_smoke, "PT_BATCH", 16)
+    monkeypatch.setattr(chip_smoke, "CHAIN_K", 2)
     calls = Counter()
     orig = lxmert.mha_blhd_train
 
@@ -598,12 +600,18 @@ def test_pretrain_phase_launches_exactly_the_kernel_phase_cases(monkeypatch):
     assert fs["full_bytes"] > fs["lxrt_bytes"] > 0 and fs["leaves"] > 0
     assert out["profile"]["steps"] == ["train_step vis_mask",
                                        "train_step word_mask"]
+    # the chained call equals the sequential steps bit for bit on the CPU
+    ch = out["chained"]
+    assert ch["bit_equal"] and ch["param_spread"] == ch["loss_spread"] == 0
+    assert ch["examples_per_s"] > 0 and ch["sequential_examples_per_s"] > 0
     # steps of each kind: the pallas route's steps, the timed parts, the
-    # full-state check's three runs and the profiled run; each task of
-    # the check step on "card" and CPU in each type
+    # full-state check's three runs, the profiled run and the chained
+    # check's (two sequential runs and four calls); each task of the
+    # check step on "card" and CPU in each type
     steps = {"pt step": chip_smoke.PT_STEPS
              + len(chip_smoke.PT_TASKS) * chip_smoke.PT_PARTS
-             + 3 * chip_smoke.FULL_K + chip_smoke.PROFILE_STEPS,
+             + 3 * chip_smoke.FULL_K + chip_smoke.PROFILE_STEPS
+             + 6 * chip_smoke.CHAIN_K,
              "pt check float32": 2 * len(chip_smoke.PT_TASKS),
              "pt check bfloat16": 2 * len(chip_smoke.PT_TASKS)}
     want = Counter()

@@ -239,3 +239,26 @@ def test_kernel_wrappers_take_the_plain_version_only_on_the_cpu():
     with pytest.raises(ValueError, match="unsupported device"):
         fused_block.fused_block(x.to("meta"), x.to("meta"), fw, g, b,
                                 has_ffn=False)
+
+
+def test_the_native_runtime_and_int8_attention_build_nothing_at_import():
+    """The last modules ported (runtime/, data/fast_tokenizer,
+    ops/attention_int8) are port modules under the import rule above,
+    and importing them compiles nothing: the tokenizer's library and
+    the kernel are built at first use."""
+    import subprocess
+    import sys
+
+    files = {os.path.relpath(f, ROOT) for f in _port_files()}
+    assert {os.path.join("xlxmert_tpu_torch", *p) for p in (
+        ("runtime", "__init__.py"), ("data", "fast_tokenizer.py"),
+        ("ops", "attention_int8.py"))} <= files
+    code = ("import xlxmert_tpu_torch.data.fast_tokenizer as f, "
+            "xlxmert_tpu_torch.ops.attention_int8 as a, "
+            "xlxmert_tpu_torch.serving.lxmert_int8 as e; "
+            "print(len(f._LIBS), a.KERNEL._lib is None, "
+            "a.KERNEL.launches, e._INT8_ATTENTION)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["0", "True", "0", "False"]

@@ -114,7 +114,9 @@ def run(task: str, argv=None):
     from xlxmert_tpu_torch.data.datasets import (
         GQADataset, NLVR2Dataset, VQADataset,
     )
-    from xlxmert_tpu_torch.data.tokenization import Tokenizer
+    from xlxmert_tpu_torch.data.fast_tokenizer import (
+        FastTokenizer as Tokenizer,
+    )
     from xlxmert_tpu_torch.parallel import mesh as pmesh
     from xlxmert_tpu_torch.tasks.finetune import FinetuneEngine
     from xlxmert_tpu_torch.utils.device import resolve_device

@@ -214,7 +214,9 @@ def main(argv=None):
     from xlxmert_tpu_torch.core.metrics import RunLogger
     from xlxmert_tpu_torch.data.datasets import PretrainDataset
     from xlxmert_tpu_torch.data.io import ClusterMap, load_json
-    from xlxmert_tpu_torch.data.tokenization import Tokenizer
+    from xlxmert_tpu_torch.data.fast_tokenizer import (
+        FastTokenizer as Tokenizer,
+    )
     from xlxmert_tpu_torch.parallel import mesh as pmesh
     from xlxmert_tpu_torch.tasks.pretrain import PretrainEngine
     from xlxmert_tpu_torch.utils.device import resolve_device

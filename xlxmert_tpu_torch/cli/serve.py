@@ -331,7 +331,7 @@ def main(argv=None):
     from xlxmert_tpu_torch.core.checkpoint import load_any_checkpoint
     from xlxmert_tpu_torch.core.config import LxmertConfig
     from xlxmert_tpu_torch.data.io import GridFeatureReader, load_json
-    from xlxmert_tpu_torch.data.tokenization import Tokenizer
+    from xlxmert_tpu_torch.data.fast_tokenizer import FastTokenizer
     from xlxmert_tpu_torch.serving.feature_cache import FeatureCache
     from xlxmert_tpu_torch.utils.device import resolve_device
 
@@ -339,7 +339,7 @@ def main(argv=None):
     cfg = (LxmertConfig.from_yaml(ns.model_config) if ns.model_config
            else LxmertConfig())
     label2ans = load_json(ns.label2ans)
-    tokenizer = Tokenizer(ns.vocab)
+    tokenizer = FastTokenizer(ns.vocab)
     with open(ns.questions) as f:
         questions = [json.loads(line) for line in f if line.strip()]
     print(f"{len(questions)} questions")
@@ -348,7 +348,9 @@ def main(argv=None):
         print("served 0 answers")
         return ns.output
 
-    with GridFeatureReader(ns.h5) as reader:
+    # only the images --questions references go to the card, read
+    # through: no second copy in host RAM
+    with GridFeatureReader(ns.h5, cache=None) as reader:
         referenced = sorted({str(q["img_id"]) for q in questions})
         missing = [i for i in referenced if i not in reader]
         if missing:

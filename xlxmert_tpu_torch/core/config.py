@@ -1,5 +1,5 @@
 """Typed configuration (port of xlxmert_tpu/core/config.py's
-LxmertConfig, TrainConfig, FinetuneConfig and GanConfig).
+LxmertConfig, TrainConfig, FinetuneConfig, SampleConfig and GanConfig).
 
 The backbone shape and the trainer knobs, with the JAX package's fields
 and defaults, so a config file written by either package reads in the
@@ -209,6 +209,29 @@ class FinetuneConfig(TrainConfig):
     train: str = "train,nominival"
     valid: str = "minival"
     test: Optional[str] = None
+
+
+@dataclass(frozen=True)
+class SampleConfig(_YamlMixin):
+    """Text-to-image sampling (scripts/sample_images.sh +
+    sample_images.py:27-104)."""
+
+    grid_size: int = 8
+    feat_dim: int = 2048
+    num_clusters: int = 10000
+    max_text_length: int = 20
+    sample_steps: int = 4  # NAR mask-predict steps
+    sample_mode: str = "NAR"  # NAR | AR
+    # AR position strategy (imggen_model.py:49-167)
+    position_strategy: str = "confidence"  # confidence | random | TLBR
+    batch_size: int = 16
+    seed: int = 9595
+    load: Optional[str] = None
+    centroids: Optional[str] = None
+    generator: Optional[str] = None
+    sentences_path: str = "example_sentences.txt"
+    output: str = "samples"
+    target_size: int = 256
 
 
 @dataclass(frozen=True)

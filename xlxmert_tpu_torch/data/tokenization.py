@@ -141,12 +141,18 @@ class Tokenizer:
         if isinstance(vocab, str):
             vocab = load_vocab(vocab)
         self.vocab: Dict[str, int] = vocab
+        self.ids_to_tokens = {i: t for t, i in vocab.items()}
         self.basic = BasicTokenizer(do_lower_case)
         self.wordpiece = WordpieceTokenizer(vocab)
         self.pad_id = vocab.get("[PAD]", 0)
         self.cls_id = vocab["[CLS]"]
         self.sep_id = vocab["[SEP]"]
         self.unk_id = vocab.get("[UNK]")
+        self.mask_id = vocab.get("[MASK]")
+
+    @property
+    def vocab_size(self) -> int:
+        return len(self.vocab)
 
     def tokenize(self, text: str) -> List[str]:
         out: List[str] = []
@@ -171,3 +177,7 @@ class Tokenizer:
             ids = self.encode(t, max_length)
             out[i, : len(ids)] = ids
         return out
+
+    def decode(self, ids: Iterable[int]) -> str:
+        toks = [self.ids_to_tokens.get(int(i), "[UNK]") for i in ids]
+        return " ".join(toks).replace(" ##", "")

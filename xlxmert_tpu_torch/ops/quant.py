@@ -174,6 +174,10 @@ class ActScale(AmaxObserver):
         return self.inv is not None
 
 
+def make_act_scale() -> ActScale:
+    return ActScale()
+
+
 def with_act_scale(s: ActScale, a_max: float) -> ActScale:
     a = max(float(a_max), 1e-8) / 127.0
     s.inv, s.scale = float(np.float32(1.0 / a)), float(np.float32(a))

@@ -27,8 +27,15 @@ replaces the reference's id()-keyed two-pass trace.
 The whole-block fused engine (serving/lxmert_fused.py) runs on the
 calibrated tree this module builds. `nlvr2_forward` serves the NLVR2
 head (fine-tuning's `--serve_int8` eval); serving/sampling_int8.py runs
-the text-to-image samplers on it. Not yet ported: the int8 attention
-einsums, which no entry point of the JAX package uses.
+the text-to-image samplers on it.
+
+Int8 attention: `int8_attention(True)` (a module switch, read at call
+time, as the JAX engine's) sends every attention of this engine, and so
+of the samplers built on it, through ops/attention_int8.mha_int8 (its
+own kernel, csrc/mha_int8.cu) with the q/k/v sites' calibrated scales.
+A forward with the switch on and an uncalibrated tree raises; turn it on
+after `apply_calibration` (cli/serve's `on_calibrated`). The whole-block
+fused engine keeps the bf16 attention, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -42,9 +49,10 @@ from torch import nn
 from xlxmert_tpu_torch.core.config import LxmertConfig
 from xlxmert_tpu_torch.models.lxmert import einsum_attention
 from xlxmert_tpu_torch.ops.attention import mha_blhd
+from xlxmert_tpu_torch.ops.attention_int8 import mha_int8
 from xlxmert_tpu_torch.ops.quant import (
-    ActScale, AmaxObserver, QuantWeight, quantize_weight, with_act_scale,
-    with_activation_scale,
+    AmaxObserver, QuantWeight, make_act_scale, quantize_weight,
+    with_act_scale, with_activation_scale,
 )
 from xlxmert_tpu_torch.utils.device import resolve_device
 
@@ -100,10 +108,11 @@ def _qw_concat(p: Dict, names) -> QuantWeight:
 
 
 def _att_scales() -> nn.ModuleDict:
-    """q/k/v calibration sites of one attention (the int8 attention
-    einsums that would use them are not ported yet)."""
-    return nn.ModuleDict({"q": ActScale(), "k": ActScale(),
-                          "v": ActScale()})
+    """q/k/v calibration sites of one attention: the static scales of
+    the int8 attention (softmax probabilities need none, their amax is 1
+    by construction)."""
+    return nn.ModuleDict({"q": make_act_scale(), "k": make_act_scale(),
+                          "v": make_act_scale()})
 
 
 # The attention route of the engine (the JAX engine's attention_impl):
@@ -141,10 +150,28 @@ def _attention_core(q, k, v, bias, n_heads: int) -> torch.Tensor:
     return mha_blhd(q, k, v, bias, n_heads, fast=True)
 
 
+# int8 attention (the JAX engine's int8_attention): when on, `_core` runs
+# ops/attention_int8.mha_int8 with the sites' calibrated q/k/v scales
+_INT8_ATTENTION = False
+
+
+def int8_attention(enable: bool) -> None:
+    global _INT8_ATTENTION
+    _INT8_ATTENTION = bool(enable)
+
+
 def _core(q, k, v, bias, n_heads: int, act: nn.ModuleDict):
     act["q"].observe(q)
     act["k"].observe(k)
     act["v"].observe(v)
+    if _INT8_ATTENTION:
+        sites = (act["q"], act["k"], act["v"])
+        if not all(s.calibrated for s in sites):
+            raise RuntimeError(
+                "int8_attention(True) needs calibrated q/k/v scales: run "
+                "calibrate() + apply_calibration on this tree first")
+        return mha_int8(q, k, v, bias, n_heads, [s.inv for s in sites],
+                        [s.scale for s in sites])
     return _attention_core(q, k, v, bias, n_heads)
 
 

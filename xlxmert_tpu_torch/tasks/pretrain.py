@@ -30,10 +30,19 @@ tensor parallelism (parallel/sharding: each rank holds its slices of
 the q/k/v, intermediate and output projections and H/tp heads). The
 gradients are averaged over the data group; the clip's global norm sums
 the sharded leaves' squares over the model group and counts each
-replicated leaf once. The losses are the global batch's. The JAX
-package's `chained_train_step` (k steps in one lax.scan, amortising the
-TPU's dispatch) has its card counterpart in CUDA graphs, training-speed
-work for later; `place_stacked` keeps its per-process input contract.
+replicated leaf once. The losses are the global batch's.
+
+`chained_train_step(task, k)` runs k steps with one fetch of their mean
+loss at the end, on one placed batch or, with per_step_batches=True, on
+the k slices of `place_stacked`'s stacked batches, as the JAX package's
+lax.scan does. The steps are eager, each exactly a `train_step` on a
+placed batch, so k chained steps compute what k sequential ones compute
+(bit for bit on the CPU; on the card as closely as two sequential runs
+agree, its atomics aside), and no host synchronization sits between
+them. A CUDA graph of the step
+would cut the host's dispatch, which bounds a step on the card, but its
+replays would bypass the kernel wrappers' launch counts that show a run
+went through `mha_blhd_train`: that is speed work for a later change.
 """
 from __future__ import annotations
 
@@ -382,10 +391,20 @@ class PretrainEngine:
         its loss reaches are updated, the others keep their moments and
         counts. Returns the losses and the global gradient norm as
         device tensors."""
+        return self.placed_train_step(state, self.place(batch), task,
+                                      centroids)
+
+    def placed_train_step(self, state: TrainState,
+                          batch: Dict[str, torch.Tensor], task: str,
+                          centroids: torch.Tensor
+                          ) -> Dict[str, torch.Tensor]:
+        """`train_step` on a batch already on the engine's device (as
+        `place` gives it). The generator is reseeded from the run's
+        seed, the step and the rank's data index first."""
         state.generator.manual_seed(step_seed(
             state.seed, state.step, self.mesh.index("data")))
-        losses, grads = self.loss_and_grads(state.model, self.place(batch),
-                                            task, centroids, state.generator)
+        losses, grads = self.loss_and_grads(state.model, batch, task,
+                                            centroids, state.generator)
         # the same set on every rank: used_param_mask decides it
         used = {n for n, g in grads.items() if g is not None}
         grads = pmesh.all_reduce_mean(grads, self.data_group)
@@ -394,6 +413,34 @@ class PretrainEngine:
         state.opt.step(grads, used=used)
         state.step += 1
         return losses
+
+    def chained_train_step(self, task: str, k: int,
+                           per_step_batches: bool = False):
+        """k training steps of `task` with one result at the end (the
+        JAX package's lax.scan of its step). Returns fn(state, batch,
+        centroids) -> (state, the mean total_loss over the k steps as a
+        device tensor); nothing in between waits for the card.
+
+        per_step_batches=False: all k steps train on the same placed
+        batch (only the generator's stream differs from step to step), a
+        device-rate measurement and no substitute for k batches.
+        per_step_batches=True: `batch` is `place_stacked`'s (k, B, ...)
+        and step i trains on slice i, which equals k sequential
+        train_step calls on the k host batches."""
+        if k < 1:
+            raise ValueError(f"chained_train_step: k = {k} < 1")
+
+        def many(state: TrainState, batch: Dict[str, torch.Tensor],
+                 centroids: torch.Tensor):
+            losses = []
+            for i in range(k):
+                b = ({n: t[i] for n, t in batch.items()}
+                     if per_step_batches else batch)
+                losses.append(self.placed_train_step(
+                    state, b, task, centroids)["total_loss"])
+            return state, torch.stack(losses).mean()
+
+        return many
 
     def place_stacked(self, batches) -> Dict[str, torch.Tensor]:
         """k host batches (this rank's own, as `place` takes them) stacked
