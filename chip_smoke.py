@@ -38,10 +38,13 @@ Phases, each of which fails the script on error:
       times at the same shapes; each case logs its launch plan and the
       CTAs an SM holds (one wave at B=256, gated). mha_int8 is held to
       its plain version at every attention shape of (o) (B=256 at each
-      bucket length, B=8), with and without a bias, each site's scale
-      calibrated on its tensor: every element within v's scale + 2^-7
-      |plain|, at least INT8_ATT_EQUAL bit-equal; beside it mha_blhd's
-      time at the same shapes (the bf16 route it replaces). fused_mha's
+      bucket length, B=8), at the int8 sampler's decode-step shapes
+      (B=64) and at its tiles' edges (Lq 1, 15, 17 by Lk 1, 31, 32, 33,
+      63; one bias masks every key of a row but one), with and without a
+      bias, each site's scale calibrated on its tensor: every element
+      within v's scale + 2^-7 |plain|, at least INT8_ATT_EQUAL
+      bit-equal; at (o)'s cases beside it mha_blhd's time at the same
+      shapes (the bf16 route it replaces) and the CTAs an SM holds. fused_mha's
       gradients on the card (kernel forward, einsum backward) are held
       to the CPU's (the bf16 bias's gradient in the fp32 case element by
       element to 2^-7 |r| plus its sum's fp32 accumulation bound), and
@@ -879,16 +882,38 @@ def check_hbatch(torch, F, attention, cfg, rng, log):
 INT8_ATT_EQUAL = 0.999
 
 
+# mha_int8's checked, untimed cases at the edges of its tiles (16 query
+# rows a warp, keys in chunks of 32 and v's transposed groups of 4), at
+# CALIB_BATCH; ONE_KEY: a bias that masks every key of batch row 0 but
+# its last
+INT8_EDGE_LQ = (1, 15, 17)
+INT8_EDGE_LK = (1, 31, 32, 33, 63)
+ONE_KEY = "one_key"
+
+
 def mha_int8_cases(cfg, B):
     """(batch, Lq, Lk, with_bias, uses) of mha_int8: every attention
     shape of (o)'s serving forwards at B and of its card-vs-CPU check
     forwards at CALIB_BATCH (the calibration forwards run with the
     switch off), with and without a bias; `uses` is empty but where the
-    case is the path's."""
+    case is the path's. Then, checked and not timed (`uses` empty): the
+    int8 sampler's decode-step shapes at Config #2's batch (the samplers
+    with int8_attention(True)), with and without a bias, and the tiles'
+    edges (INT8_EDGE_LQ x INT8_EDGE_LK) with a bias, without one and
+    with ONE_KEY's."""
     for (b, lq, lk), (path_bias, uses) in attention_shapes(cfg, B).items():
         uses = {k: n for k, n in uses.items() if k in KINDS["mha_int8"]}
         for bias in (True, False):
             yield b, lq, lk, bias, uses if bias == path_bias else {}
+    sz = SAMPLE_SIZES
+    for b, lq, lk, *_ in sampler_attention_cases(cfg, sz["batch"],
+                                                 sz["text"]):
+        for bias in (True, False):
+            yield b, lq, lk, bias, {}
+    for lq in INT8_EDGE_LQ:
+        for lk in INT8_EDGE_LK:
+            for bias in (True, False, ONE_KEY):
+                yield CALIB_BATCH, lq, lk, bias, {}
 
 
 def int8_scales(x) -> tuple:
@@ -900,6 +925,16 @@ def int8_scales(x) -> tuple:
     return s.inv, s.scale
 
 
+def mha_int8_resident_on_card(attention_int8, lq: int, lk: int) -> int:
+    """CTAs of mha_int8's (Lq, Lk) launch one SM holds at once, by the
+    card's occupancy calculator (csrc/mha_int8.cu mha_int8_resident)."""
+    import ctypes
+
+    fn = attention_int8.KERNEL.lib().mha_int8_resident
+    fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
+    return fn(lq, lk)
+
+
 def check_mha_int8(torch, F, attention, attention_int8, cfg, rng, log):
     """mha_int8 against mha_int8_reference on column slices of fused
     bf16 projections with a (B, 1, 1, Lk) bias or none, each site's scale
@@ -909,14 +944,18 @@ def check_mha_int8(torch, F, attention, attention_int8, cfg, rng, log):
     back): the plain version's, B1's
     (mha_blhd(fast=True), the bf16 route it replaces) at the same shapes,
     and the bound (B1's: the same bytes; the int8 operations far
-    below). No PyTorch call computes batched int8 products: no library
-    time."""
+    below), and at every case the CTAs an SM holds. The edge cases'
+    ONE_KEY bias masks all keys of batch row 0 but its last. No PyTorch
+    call computes batched int8 products: no library time."""
     H, HD = cfg.num_attention_heads, cfg.hidden_size
     D = HD // H
     rows = []
     for B, lq, lk, with_bias, uses in mha_int8_cases(cfg, BATCH):
         q, k, v, bias = _qkv_bias(torch, rng, B, lq, lk, HD, torch.bfloat16,
                                   with_bias)
+        if with_bias == ONE_KEY:
+            bias[0] = -1e9
+            bias[0, -1] = 0.0
         bias = None if bias is None else bias[:, None, None]
         inv, scale = zip(*(int8_scales(t) for t in (q, k, v)))
         args = (q, k, v, bias, H, inv, scale)
@@ -953,12 +992,14 @@ def check_mha_int8(torch, F, attention, attention_int8, cfg, rng, log):
                "beyond_tol": over, "bit_equal": equal, **times,
                "library_ms": None, "uses": uses,
                **bound(nbytes, 4.0 * B * H * lq * lk * D, "int8")}
+        row["resident"] = mha_int8_resident_on_card(attention_int8, lq, lk)
         rows.append(row)
         timed = ("" if not uses else
                  f"  kernel {row['ms']:.4f} ms (back to back "
                  f"{row['enqueue_ms']:.4f})  plain {row['plain_ms']:.4f}  "
                  f"mha_blhd {row['b1_ms']:.4f}  bound {row['bound_ms']:.4f} "
-                 f"({row['bound_by']})" + not_queued_note(row))
+                 f"({row['bound_by']}); {row['resident']} CTAs an SM"
+                 + not_queued_note(row))
         log(f"  {what:35} err {err:.2e} (v's scale {scale[2]:.2e}), "
             f"{equal:.4%} bit-equal" + timed)
     return rows

@@ -49,18 +49,58 @@ def test_mha_int8_cases_cover_every_launch_of_a_full_width_forward():
     for kind in chip_smoke.KINDS["mha_int8"]:
         assert sum(c[-1].get(kind, 0) for c in cases) == per["mha_int8"]
     assert "calib" not in chip_smoke.KINDS["mha_int8"]
-    shapes = {(b, lq, lk) for b, lq, lk, _, _ in cases}
-    assert shapes == {(b, lq, lk) for b in (256, 8)
-                      for L in chip_smoke.BUCKETS
-                      for lq, lk in ((L, L), (64, 64), (L, 64), (64, L))}
+    shapes = {(b, lq, lk) for b in (256, 8) for L in chip_smoke.BUCKETS
+              for lq, lk in ((L, L), (64, 64), (L, 64), (64, L))}
+    path = [c for c in cases if c[:3] in shapes]
+    assert {c[:3] for c in path} == shapes
     # every shape with and without a bias, the path's one marked
-    assert len(cases) == 2 * len(shapes)
+    assert len(path) == 2 * len(shapes)
     assert {(b, lq, lk, bias) for b, lq, lk, bias, uses in cases if uses} \
         == {(b, lq, lk, lq == lk != 64 or (lq == 64 and lk != 64))
             for b, lq, lk in shapes}
     kernels = chip_smoke.port_kernels()
     assert [k.name for k in kernels][-1] == "mha_int8"
     assert kernels[-1].source.endswith(os.path.join("csrc", "mha_int8.cu"))
+
+
+def test_mha_int8_cases_hold_the_tile_edges_and_the_sampler_shapes():
+    """Beside the path's cases, checked and never timed: the int8
+    sampler's decode-step shapes at Config #2's B=64 and the new tiling's
+    edges (16-row query tiles, 32-key chunks), each with a bias, without
+    one and (the edges) with a bias that masks all keys of a batch row
+    but one."""
+    cfg = LxmertConfig()
+    cases = list(chip_smoke.mha_int8_cases(cfg, chip_smoke.BATCH))
+    assert len(set((b, lq, lk, str(bias)) for b, lq, lk, bias, _ in cases)) \
+        == len(cases)
+    path = {(b, lq, lk) for b, lq, lk, _, uses in cases if uses}
+    assert {b for b, *_ in path} == {chip_smoke.BATCH, chip_smoke.CALIB_BATCH}
+    others = [c for c in cases if c[:3] not in path]
+    assert all(not uses for *_, uses in others)
+    sampler = {(b, lq, lk, bias) for b, lq, lk, bias, _ in others
+               if b == chip_smoke.SAMPLE_SIZES["batch"]}
+    T = chip_smoke.SAMPLE_SIZES["text"]
+    assert chip_smoke.SAMPLE_SIZES["batch"] == 64 and T == 20
+    assert sampler == {(64, lq, lk, bias)
+                       for lq, lk in ((T, T), (64, 64), (T, 64), (64, T))
+                       for bias in (True, False)}
+    # the sampler's decode step launches the attention at exactly these
+    step = {c[1:3] for c in chip_smoke.sampler_attention_cases(cfg, 64, T)
+            if "sample step" in c[-1]}
+    assert step == {(lq, lk) for _, lq, lk, _ in sampler}
+    edges = {(lq, lk, bias) for b, lq, lk, bias, _ in others
+             if b == chip_smoke.CALIB_BATCH}
+    assert edges == {(lq, lk, bias) for lq in (1, 15, 17)
+                     for lk in (1, 31, 32, 33, 63)
+                     for bias in (True, False, chip_smoke.ONE_KEY)}
+    assert len(others) == len(sampler) + len(edges)
+    # the timed rows are the path's: per_forward reads no other case
+    rows = [{"uses": uses, "ms": 1.0, **chip_smoke.bound(1.0, 1.0, "int8")}
+            for *_, uses in cases]
+    t = chip_smoke.per_forward(rows, engine.VQA_LENGTH_MIX,
+                               chip_smoke.KINDS["mha_int8"])
+    for kind in chip_smoke.KINDS["mha_int8"]:
+        assert t[kind]["ms"] == 34
 
 
 def test_phase_o_serves_through_mha_int8_at_the_kernel_cases(monkeypatch,
@@ -164,3 +204,24 @@ def test_refusal_gate_fails_when_an_uncalibrated_tree_serves(monkeypatch):
     with pytest.raises(SystemExit):
         chip_smoke.uncalibrated_refuses(torch, engine, "cpu")
     assert not engine._INT8_ATTENTION
+
+
+def test_int8_attention_variants_script_edits_match_the_kernel_source():
+    """scripts/time_int8_attention_variants.py times text edits of
+    csrc/mha_int8.cu: each edit's text is in the source once, and the
+    variants held to base's bits are the ones that keep its arithmetic."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "scripts", "time_int8_attention_variants.py")
+    spec = importlib.util.spec_from_file_location("int8_att_variants", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with open(mod.SOURCE) as f:
+        src = f.read()
+    for name, edits in mod.EDITS.items():
+        for old, new in edits:
+            assert src.count(old) == 1, name
+            assert old != new
+    assert set(mod.EXACT) <= set(mod.EDITS)
+    assert all(name.startswith("no_") for name in set(mod.EDITS)
+               - set(mod.EXACT))

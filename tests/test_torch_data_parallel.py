@@ -69,7 +69,8 @@ def dp_run(tmp_path_factory):
     idx = np.array([6, 0, 3, 3, 5, 1])
     calls.append(("feature_table", dict(rows=rows, idx=idx)))
     calls.append(("replicated_module", {}))
-    ranks = spawn(bodies.cases, 2, (calls,), timeout=SPAWN_TIMEOUT)
+    ranks = spawn(bodies.cases, 2, (calls,), timeout=SPAWN_TIMEOUT,
+                  device="cpu")
     return dict(params=params, ranks=ranks, gan=(gan_batch, centroids, start),
                 pred=pred, table=(rows, idx))
 

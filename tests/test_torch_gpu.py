@@ -888,6 +888,44 @@ def test_mha_blhd_kernel_at_the_sampler_batch(cuda, Lq, Lk, with_bias):
     assert (out.float() - ref.float()).abs().max() <= 2e-2
 
 
+# chip_smoke's mha_int8 cases: phase (o)'s serving and check shapes, the
+# int8 sampler's decode-step shapes at B=64 and the tiles' edges
+INT8_ATTENTION_CASES = sorted(
+    {(b, lq, lk, str(bias)) for b, lq, lk, bias, _ in
+     chip_smoke.mha_int8_cases(LxmertConfig(), chip_smoke.BATCH)})
+
+
+@pytest.mark.parametrize("B,Lq,Lk,with_bias", INT8_ATTENTION_CASES)
+def test_mha_int8_kernel_matches_plain(cuda, B, Lq, Lk, with_bias):
+    """chip_smoke's gate: every element within v's scale + 2^-7 |plain|
+    (expf and the softmax sum's order can move one p8 by 1), at least
+    INT8_ATT_EQUAL of them bit-equal; one launch."""
+    from xlxmert_tpu_torch.ops import attention_int8
+
+    rng = np.random.RandomState(B + 7 * Lq + 131 * Lk)
+    H = 12
+    q, k, v = _qkv(rng, B, Lq, Lk, H * 64, torch.bfloat16, cuda)
+    bias = None
+    if with_bias != "False":
+        m = (rng.rand(B, Lk) > 0.3).astype(np.float32)
+        m[:, 0] = 1
+        if with_bias == chip_smoke.ONE_KEY:
+            m[0] = 0
+            m[0, -1] = 1
+        bias = ((1.0 - torch.from_numpy(m)) * -1e9)[:, None, None, :].to(
+            cuda, torch.bfloat16)
+    inv, scale = zip(*(chip_smoke.int8_scales(t) for t in (q, k, v)))
+    before = attention_int8.KERNEL.launches
+    out = attention_int8.mha_int8(q, k, v, bias, H, inv, scale)
+    torch.cuda.synchronize()
+    assert attention_int8.KERNEL.launches == before + 1
+    ref = attention_int8.mha_int8_reference(q, k, v, bias, H, inv, scale)
+    d = (out.float() - ref.float()).abs()
+    assert torch.isfinite(out).all()
+    assert (d <= scale[2] + 2.0 ** -7 * ref.float().abs()).all()
+    assert (d == 0).float().mean().item() >= chip_smoke.INT8_ATT_EQUAL
+
+
 @pytest.mark.parametrize("int8", [True, False])
 def test_nar_decode_steps_match_the_cpu(cuda, int8):
     """The first two NAR steps of the int8 (kernels) and the bf16 sampler

@@ -171,10 +171,10 @@ def test_spawn_reports_a_failing_rank_and_a_hung_one():
     outlives the timeout."""
     with pytest.raises(RuntimeError, match="(?s)rank 0:.*division by zero"):
         spawn(functools.partial(operator.truediv, 1), 2, init="none",
-              timeout=60)
+              timeout=60, device="cpu")
     with pytest.raises(TimeoutError, match="did not finish"):
         spawn(functools.partial(subprocess.run, ["sleep", "20"]), 2,
-              init="none", timeout=6)
+              init="none", timeout=6, device="cpu")
 
 
 def test_cli_mesh_flags_reach_the_config():

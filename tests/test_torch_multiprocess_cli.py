@@ -37,7 +37,7 @@ def test_vqa_cli_on_two_ranks(world):
     spawn(bodies.cases, 2, ([("run_cli", dict(
         module="xlxmert_tpu_torch.cli.vqa", argv=argv)),
         ("run_cli", dict(module="xlxmert_tpu_torch.cli.vqa", argv=test))],),
-        timeout=SPAWN_TIMEOUT, init="env")
+        timeout=SPAWN_TIMEOUT, init="env", device="cpu")
     assert (out / "LAST.msgpack").exists() and (out / "BEST.msgpack").exists()
     log = (out / "log.txt").read_text()
     assert log.count("epoch 0: valid") == 1          # rank 0 alone logs
@@ -64,7 +64,7 @@ def pretrain_runs(tmp_path_factory):
                                        "--epochs", "2", "--load",
                                        str(single / "Epoch01_FULL.msgpack"),
                                        *mesh)))],),
-        timeout=SPAWN_TIMEOUT, init="env")
+        timeout=SPAWN_TIMEOUT, init="env", device="cpu")
     return single, tp, resumed
 
 
@@ -107,7 +107,7 @@ def test_gan_cli_on_two_ranks(tmp_path, monkeypatch):
     two[two.index("--batch_size") + 1] = str(tgc.IMAGES // 2)
     out = spawn(bodies.run_cli, 2, ("xlxmert_tpu_torch.cli.train_generator",
                                     two),
-                timeout=SPAWN_TIMEOUT, init="env")
+                timeout=SPAWN_TIMEOUT, init="env", device="cpu")
     assert [o["pairs"] for o in out] == [1, 1]
     assert out[0]["last"] == out[1]["last"]          # global metrics
     assert sorted(out[0]["last"]) == sorted(first)

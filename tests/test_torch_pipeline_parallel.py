@@ -45,7 +45,8 @@ def pipe_run():
                                    x0=np.asarray(x0), bias=np.asarray(bias),
                                    mesh_shape=s, n_micro=N_MICRO))
              for s in SHAPES]
-    ranks = spawn(bodies.cases, 4, (calls,), timeout=SPAWN_TIMEOUT)
+    ranks = spawn(bodies.cases, 4, (calls,), timeout=SPAWN_TIMEOUT,
+                  device="cpu")
     return dict(layer_fn=layer_fn, stacked=stacked, x0=x0, bias=bias,
                 sequential=sequential, ranks=ranks)
 

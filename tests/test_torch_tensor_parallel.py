@@ -75,7 +75,8 @@ def tp_run():
                                      train_kw=train_kw(),
                                      batches=drop_batches,
                                      tasks=drop_tasks))]
-    ranks = spawn(bodies.cases, 2, (calls,), timeout=SPAWN_TIMEOUT)
+    ranks = spawn(bodies.cases, 2, (calls,), timeout=SPAWN_TIMEOUT,
+                  device="cpu")
     return {"params": params, "batches": batches, "ranks": ranks,
             "drop": (drop_kw, drop_batches, drop_tasks)}
 

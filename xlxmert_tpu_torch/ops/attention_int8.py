@@ -135,11 +135,19 @@ def _mha_int8_forward(q, k, v, bias, n_heads: int, inv, scale):
         raise ValueError(f"mha_int8: bias must be a contiguous bf16 (B, Lk) "
                          f"or (B, 1, 1, Lk) tensor on {q.device}")
     out = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    KERNEL.launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(), B,
-        n_heads, Lq, Lk, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), *(float(np.float32(x)) for x in inv),
-        score_scale(scale[0], scale[1], D), context_scale(scale[2]), stream)
+    KERNEL.launch(*launch_args(q, k, v, bias, out, n_heads, inv, scale))
     return out
+
+
+def launch_args(q, k, v, bias, out, n_heads: int, inv, scale) -> tuple:
+    """`mha_int8_launch`'s arguments for checked operands, on the current
+    stream."""
+    B, Lq, HD = q.shape
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if bias is None else bias.data_ptr(), out.data_ptr(), B,
+            n_heads, Lq, k.shape[1], q.stride(0), q.stride(1), k.stride(0),
+            k.stride(1), v.stride(0), v.stride(1),
+            *(float(np.float32(x)) for x in inv),
+            score_scale(scale[0], scale[1], HD // n_heads),
+            context_scale(scale[2]),
+            torch.cuda.current_stream(q.device).cuda_stream)

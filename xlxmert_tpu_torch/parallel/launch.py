@@ -15,7 +15,9 @@ torchrun's environment (RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE,
 MASTER_ADDR=localhost, MASTER_PORT) and leaves the start to `fn`, as a
 CLI's `maybe_initialize_multihost` does. `threads` torch threads a rank
 keep ranks that share a host's cores from waiting on each other's
-spinning threads.
+spinning threads. `device` is "cuda" unless the caller asks for the CPU
+(`device="cpu"`, as the CPU tests do), as in
+`mesh.initialize_multihost`.
 """
 from __future__ import annotations
 
@@ -63,9 +65,11 @@ def _rank_main(fn, rank, world, init, store, env, threads, device, args,
 
 def spawn(fn: Callable, world: int, args: Sequence[Any] = (),
           timeout: float = 300.0, init: str = "file",
-          threads: Optional[int] = 1, device: str = "cpu") -> List[Any]:
+          threads: Optional[int] = 1, device: str = "cuda") -> List[Any]:
     """Run `fn(rank, *args)` on `world` ranks; their results in rank
-    order."""
+    order. With init="file" each rank starts its group on `device`: the
+    card (NCCL, or gloo where ranks share one) unless the caller asks for
+    the CPU (gloo)."""
     import torch.multiprocessing as mp
 
     ctx = mp.get_context("spawn")
