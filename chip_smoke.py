@@ -3814,20 +3814,21 @@ def gan_steps_card_vs_cpu(torch, cfg, batch, centroids, seed, device, log):
 
 def profile_groups(torch, fn, groups) -> dict:
     """fn timed once on the host clock (profiler off), then traced by
-    torch.profiler: its device time, the busy share (device over wall),
-    the device time of each group ({name: substring of an op's or an
+    torch.profiler (utils/profiling.trace: the program's stage spans are
+    ranges): its device time, the busy share (device over wall), the
+    device time of each group ({name: substring of an op's or an
     ancestor's name}, the first that matches), the rest as "glue", and
     the glue's largest ops."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from xlxmert_tpu_torch.utils.profiling import trace
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with trace() as prof:
         fn()
         torch.cuda.synchronize()
     total, by, other = 0.0, {g: 0.0 for g in groups}, {}

@@ -121,24 +121,6 @@ def test_pretrain_cli_bert_init(world):
         atol=1e-6)
 
 
-def test_step_timer_summarizes_as_the_jax_one():
-    """utils/profiling.StepTimer: the JAX package's warm-up skip and
-    summary keys; `force` takes a tensor in any nesting."""
-    import torch
-
-    from xlxmert_tpu.utils.profiling import StepTimer as JaxTimer
-    from xlxmert_tpu_torch.utils.profiling import StepTimer
-
-    timers = (StepTimer(skip_first=1), JaxTimer(skip_first=1))
-    for timer in timers:
-        for _ in range(3):
-            with timer:
-                StepTimer.force({"loss": [torch.ones(2)]})
-    assert len(timers[0].times) == len(timers[1].times) == 2
-    assert timers[0].summary().keys() == timers[1].summary().keys()
-    assert timers[0].summary()["n"] == 2 and StepTimer().summary() == {}
-
-
 @pytest.mark.parametrize("extra,message", [
     (["--visualLosses", "obj,attr"], "attr labels"),
     (["--visualLosses", "obj,feat"], "exact-feature source"),

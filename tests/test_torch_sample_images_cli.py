@@ -3,6 +3,8 @@ format checkpoints (X-LXMERT and the generator), centroids, vocabulary
 and sentences on disk; NAR and AR, bf16 and int8, rendered PNGs that
 decode to the rendered array; the random AR order and the int8
 calibration sentences the JAX CLI draws; its refusals."""
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -90,6 +92,25 @@ def test_cli_samples_and_renders_on_the_cpu(files, extra):
         # the last step's grid is the final one
         for p, q in zip(_pngs(out_dir / "step1"), pngs):
             assert p.read_bytes() == q.read_bytes()
+
+
+def test_profile_traces_the_sampler_and_render_stages(files):
+    """--profile DIR: the batches after the first in a Chrome trace whose
+    ranges are the int8 NAR sampler's and the render's stages."""
+    tmp, common, sents = files
+    res = cli.main(common + ["--generator", str(tmp / "g.msgpack"),
+                             "--output", str(tmp / "out_prof"), "--device",
+                             "cpu", "--int8", "--sample_steps", "2",
+                             "--profile", str(tmp / "prof")])
+    assert res["ids"].shape == (len(sents), GRID * GRID)
+    (trace,) = (tmp / "prof").glob("*.pt.trace.json")
+    names = [e.get("name") for e in json.loads(trace.read_text())[
+        "traceEvents"]]
+    # 6 sentences in batches of 4: the second batch traced
+    assert names.count("xlt.sampler.language") == 1
+    assert names.count("xlt.render") == 1
+    for stage in ("remask", "visual", "cross", "head", "commit"):
+        assert names.count(f"xlt.sampler.{stage}") == 2, stage
 
 
 def test_cli_without_a_generator_saves_the_ids(files):

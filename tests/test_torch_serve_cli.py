@@ -88,6 +88,24 @@ def test_unbucketed_answers_agree_in_question_order(served):
     assert agree >= 8, f"{agree}/10 agree"
 
 
+def test_profile_traces_the_engine_stages_and_keeps_the_answers(served):
+    """--profile DIR: the batches after the warm-up one in a Chrome trace
+    whose ranges are the serving forward's stages; the same answers."""
+    out, tmp, common, _ = served
+    torch_serve(common + ["--output", str(tmp / "torch_prof.jsonl"),
+                          "--device", "cpu", "--profile",
+                          str(tmp / "prof")])
+    with open(tmp / "torch_prof.jsonl") as f:
+        assert [json.loads(line) for line in f] == out["torch", "flat"]
+    (trace,) = (tmp / "prof").glob("*.pt.trace.json")
+    names = [e.get("name") for e in json.loads(trace.read_text())[
+        "traceEvents"]]
+    # 10 questions in batches of 4: two traced forwards
+    for stage in ("xlt.serve.inputs", "xlt.engine.language",
+                  "xlt.engine.visual", "xlt.engine.cross", "xlt.serve.head"):
+        assert names.count(stage) == 2, stage
+
+
 def test_bucketed_answers_cover_every_question_and_agree(served):
     out, *_ = served
     ref = {a["question_id"]: a["answer"] for a in out["jax", "bkt"]}

@@ -6,9 +6,13 @@ Accepted without effect, as in the JAX CLI: `--multiGPU`,
 `--distributed`, `--numWorkers`, `--tqdm`, and here also `--rng_impl`
 (a JAX PRNG choice; the port draws dropout from a torch.Generator).
 `--profile` traces pre-training steps with torch.profiler; fine-tuning
-accepts it without effect, as the JAX CLI does. Fine-tuning reads none of the
-pre-training flags (task mix, masking, clustering, the h5 overrides,
-`--bert_weights`), as in the JAX package.
+accepts it without effect, as the JAX CLI does. `cli/serve` and
+`cli/sample_images` parse their own flags and take `--profile DIR` in
+the same sense: the batches after the first one traced into DIR, with
+the program's stage spans (utils/profiling.span) as ranges of the
+Chrome trace. Fine-tuning reads none of the pre-training flags (task
+mix, masking, clustering, the h5 overrides, `--bert_weights`), as in
+the JAX package.
 """
 from __future__ import annotations
 

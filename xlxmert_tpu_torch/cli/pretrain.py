@@ -93,7 +93,7 @@ def pretrain(eng, state, train_ds, valid_ds, cfg, centroids, logger,
     from xlxmert_tpu_torch.core.metrics import LossMeter
     from xlxmert_tpu_torch.data.io import PrefetchLoader
     from xlxmert_tpu_torch.parallel import mesh as pmesh
-    from xlxmert_tpu_torch.utils.profiling import annotate, trace
+    from xlxmert_tpu_torch.utils.profiling import span, trace
 
     steps_per_epoch = max(pmesh.agree_min(len(train_ds)) // cfg.batch_size,
                           1)
@@ -122,7 +122,7 @@ def pretrain(eng, state, train_ds, valid_ds, cfg, centroids, logger,
                     elif epoch == start_epoch and i == profile_start + profile:
                         tracing.close()
                     task = eng.task_for_step(global_step)
-                    with annotate(f"train_step {task}"):
+                    with span(f"train_step {task}"):
                         metrics = eng.train_step(state, batch, task,
                                                  centroids)
                     if i % 50 == 0:

@@ -8,7 +8,7 @@ this implements the unambiguous intent).
         --centroids data/cluster_centroids/maskrcnn_..._grid8.npy \\
         --generator snap/pretrained/G_60.msgpack \\
         --sentences example_sentences.txt --sample_steps 4 \\
-        --output samples [--int8] [--device cuda]
+        --output samples [--int8] [--device cuda] [--profile DIR]
 
 Each batch of sentences goes through the NAR (mask-predict) or AR code
 sampler (tasks/sampling.py; with --int8 serving/sampling_int8.py), then,
@@ -16,10 +16,19 @@ with --generator, the SPADE generator's render (models/gan.py, bf16) to
 PNGs; without it the cluster ids are saved as .npy. `sample_images()` is
 that loop, callable with the loaded inputs (`load_inputs`); it returns
 the ids, codes, images and per-batch times.
+
+--profile DIR traces the batches after the first one (the only batch,
+if there is one) with torch.profiler into DIR, a Chrome trace for
+TensorBoard/Perfetto (utils/profiling.trace) in which the stages are
+ranges beside the card's kernels: with --int8 and NAR the sampler's
+"xlt.sampler.language" and each decode step's "xlt.sampler.remask",
+"xlt.sampler.visual", "xlt.sampler.cross", "xlt.sampler.head" and
+"xlt.sampler.commit"; the render's "xlt.render" in every mode.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import struct
 import time
 import zlib
@@ -72,6 +81,11 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda (the default) or cpu, where every kernel "
                    "takes its plain PyTorch version")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="trace the batches after the first one with "
+                   "torch.profiler into DIR, a Chrome trace for "
+                   "TensorBoard/Perfetto whose ranges are the sampler's "
+                   "and the render's stages")
     return p.parse_args(argv)
 
 
@@ -225,11 +239,15 @@ def sample_images(ns, inputs: Dict, on_ready: Optional[Callable] = None,
     "codes" (N, V, D, on the device) of the final grids, "images" (N, S,
     S, 3) float32 in [0, 1] or None, per batch "sample_s" and "render_s"
     (host clock, each ended by a synchronize), and the "engine" (the
-    calibrated int8 tree or the bf16 model) and "generator" it ran."""
+    calibrated int8 tree or the bf16 model) and "generator" it ran.
+    ns.profile, a directory, traces the batches after the first one
+    into it (utils/profiling.trace; the first where it is the only
+    one)."""
     import torch
 
     from xlxmert_tpu_torch.models.gan import render
     from xlxmert_tpu_torch.utils.device import resolve_device
+    from xlxmert_tpu_torch.utils.profiling import trace
 
     if ns.int8 and ns.save_intermediate:
         raise SystemExit("--int8 does not support --save_intermediate")
@@ -250,43 +268,50 @@ def sample_images(ns, inputs: Dict, on_ready: Optional[Callable] = None,
     rng = np.random.RandomState(ns.seed)
     all_ids, all_codes, all_imgs = [], [], []
     sample_s, render_s = [], []
-    for s in range(0, len(sentences), B):
-        batch_sents = sentences[s:s + B]
-        n = len(batch_sents)
-        ids = tokenizer.encode_batch(batch_sents + [""] * (B - n),
-                                     ns.max_text_length)
-        ids_t = torch.from_numpy(ids.astype(np.int64)).to(dev)
-        mask_t = (ids_t > 0).float()
-        order = (rng.permutation(ns.grid_size ** 2)
-                 if ns.sample_mode == "AR"
-                 and ns.position_strategy == "random" else None)
-        t0 = time.perf_counter()
-        code, cluster_ids = run(ids_t, mask_t, order)[:2]
-        sync()
-        dt = time.perf_counter() - t0
-        sample_s.append(dt)
-        steps = None
-        if ns.sample_mode == "NAR" and ns.save_intermediate:
-            # collect_intermediate: leading (n_steps,) axis; final = last
-            steps, code, cluster_ids = code, code[-1], cluster_ids[-1]
-        print(f"sampled {n} grids in {dt:.2f}s ({n / dt:.1f} samples/s)")
-        all_ids.append(cluster_ids[:n].cpu().numpy())
-        all_codes.append(code[:n])
-        if gen is not None:
+    profile_from = B if len(sentences) > B else 0
+    tracing = contextlib.ExitStack()
+    with tracing:
+        for s in range(0, len(sentences), B):
+            if ns.profile and s == profile_from:
+                print(f"profiler trace of the batches from sentence {s} -> "
+                      f"{ns.profile}")
+                tracing.enter_context(trace(ns.profile))
+            batch_sents = sentences[s:s + B]
+            n = len(batch_sents)
+            ids = tokenizer.encode_batch(batch_sents + [""] * (B - n),
+                                         ns.max_text_length)
+            ids_t = torch.from_numpy(ids.astype(np.int64)).to(dev)
+            mask_t = (ids_t > 0).float()
+            order = (rng.permutation(ns.grid_size ** 2)
+                     if ns.sample_mode == "AR"
+                     and ns.position_strategy == "random" else None)
             t0 = time.perf_counter()
-            imgs = render(gen, code).float()
+            code, cluster_ids = run(ids_t, mask_t, order)[:2]
             sync()
-            render_s.append(time.perf_counter() - t0)
-            imgs = imgs[:n].cpu().numpy()
-            all_imgs.append(imgs)
-            save_pngs(imgs, batch_sents, out_dir, s)
-            for t in range(0 if steps is None else steps.shape[0]):
-                step_dir = out_dir / f"step{t}"
-                step_dir.mkdir(exist_ok=True)
-                save_pngs(render(gen, steps[t]).float()[:n].cpu().numpy(),
-                          batch_sents, step_dir, s)
-        else:
-            np.save(out_dir / f"codes_{s:04d}.npy", all_ids[-1])
+            dt = time.perf_counter() - t0
+            sample_s.append(dt)
+            steps = None
+            if ns.sample_mode == "NAR" and ns.save_intermediate:
+                # collect_intermediate: leading (n_steps,) axis; final = last
+                steps, code, cluster_ids = code, code[-1], cluster_ids[-1]
+            print(f"sampled {n} grids in {dt:.2f}s ({n / dt:.1f} samples/s)")
+            all_ids.append(cluster_ids[:n].cpu().numpy())
+            all_codes.append(code[:n])
+            if gen is not None:
+                t0 = time.perf_counter()
+                imgs = render(gen, code).float()
+                sync()
+                render_s.append(time.perf_counter() - t0)
+                imgs = imgs[:n].cpu().numpy()
+                all_imgs.append(imgs)
+                save_pngs(imgs, batch_sents, out_dir, s)
+                for t in range(0 if steps is None else steps.shape[0]):
+                    step_dir = out_dir / f"step{t}"
+                    step_dir.mkdir(exist_ok=True)
+                    save_pngs(render(gen, steps[t]).float()[:n].cpu().numpy(),
+                              batch_sents, step_dir, s)
+            else:
+                np.save(out_dir / f"codes_{s:04d}.npy", all_ids[-1])
     print(f"outputs in {out_dir}")
     return {"ids": np.concatenate(all_ids) if all_ids else None,
             "codes": torch.cat(all_codes) if all_codes else None,

@@ -19,9 +19,17 @@ Usage:
       --h5 data/mscoco_imgfeat/maskrcnn_valid_grid8.h5 \\
       --vocab vocab.txt --label2ans trainval_label2ans.json \\
       --questions questions.jsonl --output answers.jsonl [--batch 256] \\
-      [--buckets 8,12,16,20] [--device cuda]
+      [--buckets 8,12,16,20] [--device cuda] [--profile DIR]
 
 questions.jsonl lines: {"question_id": ..., "img_id": ..., "sent": ...}.
+--profile DIR traces the serving batches after the warm-up one (the
+only batch, if there is one) with torch.profiler into DIR, a Chrome
+trace for TensorBoard/Perfetto (utils/profiling.trace) in which each
+int8 forward's stages are ranges beside the card's kernels:
+"xlt.serve.inputs" (the copies to the card and the catalog gather),
+"xlt.engine.language", "xlt.engine.visual", "xlt.engine.cross" and
+"xlt.serve.head" (the answer head and the argmax). A traced stream runs
+slower than an untraced one: keep it short.
 `serve()` is the serving loop itself, callable with in-memory inputs;
 `serving_forward()` (int8), `fused_serving_forward()` (int8, fused
 blocks) and `bf16_serving_forward()` are the forwards it runs on every
@@ -30,6 +38,7 @@ batch.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 from collections import deque
@@ -66,6 +75,11 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu (plain PyTorch versions of "
                    "the kernels)")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="trace the serving batches after the warm-up one "
+                   "with torch.profiler into DIR, a Chrome trace for "
+                   "TensorBoard/Perfetto whose ranges are the engine's "
+                   "stages")
     return p.parse_args(argv)
 
 
@@ -94,6 +108,7 @@ def _int8_forward(forward, tree, hqp, cache, cfg, device):
     from xlxmert_tpu_torch.serving import lxmert_int8 as engine
     from xlxmert_tpu_torch.serving.feature_cache import FeatureCache
     from xlxmert_tpu_torch.utils.boxes import box_position
+    from xlxmert_tpu_torch.utils.profiling import span
 
     V = cache.table.shape[1]
     pos = torch.from_numpy(box_position(int(np.sqrt(V)))).to(
@@ -101,13 +116,15 @@ def _int8_forward(forward, tree, hqp, cache, cfg, device):
 
     @torch.inference_mode()
     def run(ids, picks, mask):
-        ids, picks, mask = (t.to(device, non_blocking=True)
-                            for t in (ids, picks, mask))
-        feats = FeatureCache.lookup(cache.table, picks)
+        with span("xlt.serve.inputs"):
+            ids, picks, mask = (t.to(device, non_blocking=True)
+                                for t in (ids, picks, mask))
+            feats = FeatureCache.lookup(cache.table, picks)
         _, _, pooled = forward(
             tree, ids, feats, pos[None].expand(ids.shape[0], V, 4),
             attention_mask=mask, n_heads=cfg.num_attention_heads)
-        return engine.answer_head_forward(hqp, pooled).argmax(-1)
+        with span("xlt.serve.head"):
+            return engine.answer_head_forward(hqp, pooled).argmax(-1)
 
     return run
 
@@ -145,7 +162,8 @@ def serve(questions: List[Dict], tokenizer, cache, params: Dict, cfg,
           calib_samples: int = 256, device="cuda", bf16: bool = False,
           attention: str = "auto", fused_ffn: bool = False,
           fused: bool = False,
-          on_calibrated: Optional[Callable[[], None]] = None) -> Dict:
+          on_calibrated: Optional[Callable[[], None]] = None,
+          profile: Optional[str] = None) -> Dict:
     """Calibrate the int8 engine on queries sampled across `questions`,
     then answer every question into `output` (jsonl); with fused=True
     through the whole-block fused engine built from the calibrated one
@@ -155,7 +173,9 @@ def serve(questions: List[Dict], tokenizer, cache, params: Dict, cfg,
     bf16=True, serve the bf16 VQAModel instead, uncalibrated, in serving
     mode with `attention` ("auto": the packed-head kernel on the card;
     "einsum", "blhd" or "pallas") and `fused_ffn`
-    (models/lxmert.ServingOptions).
+    (models/lxmert.ServingOptions). `profile`, a directory, traces the
+    batches after the warm-up one into it (utils/profiling.trace; the
+    warm-up too where it is the only batch).
 
     cache: a FeatureCache on `device` holding every referenced image;
     params: the flax-layout tree with "bert" and "answer_head" (numpy).
@@ -169,6 +189,7 @@ def serve(questions: List[Dict], tokenizer, cache, params: Dict, cfg,
     from xlxmert_tpu_torch.serving.feature_cache import FeatureCache
     from xlxmert_tpu_torch.utils.boxes import box_position
     from xlxmert_tpu_torch.utils.device import resolve_device
+    from xlxmert_tpu_torch.utils.profiling import trace
 
     dev = resolve_device(device)
     if fused and bf16:
@@ -283,16 +304,23 @@ def serve(questions: List[Dict], tokenizer, cache, params: Dict, cfg,
     n = 0
     pending: deque = deque()
     t_begin = time.time()
-    with open(output, "w") as f:
+    tracing = contextlib.ExitStack()
+    with open(output, "w") as f, tracing:
         def write(chunk, preds):
             for q, p in zip(chunk, preds.tolist()):
                 f.write(json.dumps({"question_id": q["question_id"],
                                     "answer": label2ans[int(p)]}) + "\n")
 
+        if profile and len(all_batches) == 1:
+            tracing.enter_context(trace(profile))
         # warm-up batch runs synchronously; the steady-state clock starts
         # before the remaining batches are dispatched
         chunk0, host0 = all_batches[0]
         write(chunk0, run(*host0).cpu())
+        if profile and len(all_batches) > 1:
+            print(f"profiler trace of {len(all_batches) - 1} batches -> "
+                  f"{profile}")
+            tracing.enter_context(trace(profile))
         t0 = time.time()
         for chunk, host in all_batches[1:]:
             pending.append((chunk, run(*host)))
@@ -367,7 +395,8 @@ def main(argv=None):
     serve(questions, tokenizer, cache, params, cfg, label2ans, ns.output,
           batch=ns.batch, max_text_length=ns.max_text_length,
           buckets=ns.buckets, window=ns.window,
-          calib_samples=ns.calib_samples, device=dev, bf16=ns.bf16)
+          calib_samples=ns.calib_samples, device=dev, bf16=ns.bf16,
+          profile=ns.profile)
     return ns.output
 
 

@@ -61,6 +61,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from xlxmert_tpu_torch.utils.profiling import span
+
 
 class _resolution_channels:
     """layers.py:161-175 — min(512, base) everywhere except the two
@@ -417,13 +419,13 @@ class DiscriminatorResidualBlock(nn.Module):
 class _ClassLogits(torch.autograd.Function):
     """(M, D) x (C, D)^T with fp32 sums and an fp32 result; the backward
     gives the first operand's gradient in its type (the centroids are a
-    constant). Both directions run under the profiler range
-    "acgan_product"."""
+    constant). Both directions run under the span
+    "xlt.gan.acgan_product" (utils/profiling)."""
 
     @staticmethod
     def forward(ctx, a, c):
         ctx.save_for_backward(c)
-        with torch.profiler.record_function("acgan_product"):
+        with span("xlt.gan.acgan_product"):
             if a.dtype == torch.float32:
                 return torch.mm(a, c.t())
             if a.is_cuda:
@@ -433,7 +435,7 @@ class _ClassLogits(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (c,) = ctx.saved_tensors
-        with torch.profiler.record_function("acgan_product"):
+        with span("xlt.gan.acgan_product"):
             return torch.mm(g.to(c.dtype), c), None
 
 
@@ -568,8 +570,9 @@ def variables_of(module: nn.Module) -> Dict[str, Dict]:
 
 def render(gen: Generator, code: torch.Tensor) -> torch.Tensor:
     """Codes -> images in [0, 1], (B, target, target, 3), in the
-    generator's compute type (the JAX CLI's renderer)."""
-    with torch.inference_mode():
+    generator's compute type (the JAX CLI's renderer), under the span
+    "xlt.render" (utils/profiling)."""
+    with torch.inference_mode(), span("xlt.render"):
         return torch.clamp((gen(code) + 1.0) / 2.0, 0.0, 1.0)
 
 

@@ -41,6 +41,7 @@ from xlxmert_tpu_torch.ops.fused_block import (
 from xlxmert_tpu_torch.serving.lxmert_int8 import (
     LxmertInt8, _extend_mask, pool, text_embeddings, visual_embeddings,
 )
+from xlxmert_tpu_torch.utils.profiling import span
 
 
 class FusedBlock(nn.Module):
@@ -121,36 +122,41 @@ def lxmert_forward_fused(fp: LxmertFused, input_ids, visual_feats,
                          visual_pos, attention_mask=None,
                          visual_attention_mask=None, n_heads: int = 12):
     """Returns (lang, visn, pooled), all bf16: the numerics of
-    lxmert_int8.lxmert_forward on the static-calibrated engine."""
-    lang_bias = _extend_mask(attention_mask)
-    visn_bias = _extend_mask(visual_attention_mask)
-    lang = text_embeddings(fp.embeddings, input_ids)
-    visn = visual_embeddings(fp.visn_fc, visual_feats, visual_pos)
-
-    qkv = fp.lang_qkv0(lang)
-    for blk in fp.lang:
-        lang, qkv = _run_block(_attn(qkv, lang_bias, n_heads), lang, blk)
-    lang_qkv_x = qkv  # q|kv of x-layer 0, language side
-    qkv = fp.visn_qkv0(visn)
-    for blk in fp.visn:
-        visn, qkv = _run_block(_attn(qkv, visn_bias, n_heads), visn, blk)
-    visn_qkv_x = qkv
-
-    for xb in fp.x:
-        ql, kl, vl = lang_qkv_x.chunk(3, dim=-1)
-        qv, kv, vv = visn_qkv_x.chunk(3, dim=-1)
-        # the shared cross-attention, both directions
-        ctx_l = mha_blhd(ql, kv, vv, visn_bias, n_heads, fast=True)
-        ctx_v = mha_blhd(qv, kl, vl, lang_bias, n_heads, fast=True)
-        new_lang, sq_l = fused_block(
-            ctx_l, lang, xb.cross_out, xb.cross_ln.scale, xb.cross_ln.bias,
-            tail_w=xb.lang_self_qkv, has_ffn=False)
-        new_visn, sq_v = fused_block(
-            ctx_v, visn, xb.cross_out, xb.cross_ln.scale, xb.cross_ln.bias,
-            tail_w=xb.visn_self_qkv, has_ffn=False)
-        # tails are None on the last x-layer and go unused
-        lang, lang_qkv_x = _run_block(_attn(sq_l, lang_bias, n_heads),
-                                      new_lang, xb.lang_self)
-        visn, visn_qkv_x = _run_block(_attn(sq_v, visn_bias, n_heads),
-                                      new_visn, xb.visn_self)
-    return lang, visn, pool(fp.pooler, lang)
+    lxmert_int8.lxmert_forward on the static-calibrated engine, under
+    the same spans "xlt.engine.language", "xlt.engine.visual" (the
+    visual embedding and stack) and "xlt.engine.cross"."""
+    with span("xlt.engine.language"):
+        lang_bias = _extend_mask(attention_mask)
+        lang = text_embeddings(fp.embeddings, input_ids)
+        qkv = fp.lang_qkv0(lang)
+        for blk in fp.lang:
+            lang, qkv = _run_block(_attn(qkv, lang_bias, n_heads), lang,
+                                   blk)
+        lang_qkv_x = qkv  # q|kv of x-layer 0, language side
+    with span("xlt.engine.visual"):
+        visn_bias = _extend_mask(visual_attention_mask)
+        visn = visual_embeddings(fp.visn_fc, visual_feats, visual_pos)
+        qkv = fp.visn_qkv0(visn)
+        for blk in fp.visn:
+            visn, qkv = _run_block(_attn(qkv, visn_bias, n_heads), visn,
+                                   blk)
+        visn_qkv_x = qkv
+    with span("xlt.engine.cross"):
+        for xb in fp.x:
+            ql, kl, vl = lang_qkv_x.chunk(3, dim=-1)
+            qv, kv, vv = visn_qkv_x.chunk(3, dim=-1)
+            # the shared cross-attention, both directions
+            ctx_l = mha_blhd(ql, kv, vv, visn_bias, n_heads, fast=True)
+            ctx_v = mha_blhd(qv, kl, vl, lang_bias, n_heads, fast=True)
+            new_lang, sq_l = fused_block(
+                ctx_l, lang, xb.cross_out, xb.cross_ln.scale,
+                xb.cross_ln.bias, tail_w=xb.lang_self_qkv, has_ffn=False)
+            new_visn, sq_v = fused_block(
+                ctx_v, visn, xb.cross_out, xb.cross_ln.scale,
+                xb.cross_ln.bias, tail_w=xb.visn_self_qkv, has_ffn=False)
+            # tails are None on the last x-layer and go unused
+            lang, lang_qkv_x = _run_block(_attn(sq_l, lang_bias, n_heads),
+                                          new_lang, xb.lang_self)
+            visn, visn_qkv_x = _run_block(_attn(sq_v, visn_bias, n_heads),
+                                          new_visn, xb.visn_self)
+        return lang, visn, pool(fp.pooler, lang)

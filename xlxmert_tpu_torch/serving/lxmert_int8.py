@@ -55,6 +55,7 @@ from xlxmert_tpu_torch.ops.quant import (
     with_act_scale, with_activation_scale,
 )
 from xlxmert_tpu_torch.utils.device import resolve_device
+from xlxmert_tpu_torch.utils.profiling import span
 
 NEG_INF = -1e9
 
@@ -450,11 +451,17 @@ def cross_encode(qp: LxmertInt8, lang, visn, lang_bias, visn_bias,
 def lxmert_forward(qp: LxmertInt8, input_ids, visual_feats, visual_pos,
                    attention_mask=None, visual_attention_mask=None,
                    n_heads: int = 12):
-    """Returns (lang, visn, pooled), all bf16."""
-    lang, lang_bias = lang_encode(qp, input_ids, attention_mask, n_heads)
-    visn, visn_bias = visn_encode(qp, visual_feats, visual_pos,
-                                  visual_attention_mask, n_heads)
-    return cross_encode(qp, lang, visn, lang_bias, visn_bias, n_heads)
+    """Returns (lang, visn, pooled), all bf16. Its stages are the spans
+    "xlt.engine.language", "xlt.engine.visual" and "xlt.engine.cross"
+    (the cross layers and the pooler; utils/profiling)."""
+    with span("xlt.engine.language"):
+        lang, lang_bias = lang_encode(qp, input_ids, attention_mask,
+                                      n_heads)
+    with span("xlt.engine.visual"):
+        visn, visn_bias = visn_encode(qp, visual_feats, visual_pos,
+                                      visual_attention_mask, n_heads)
+    with span("xlt.engine.cross"):
+        return cross_encode(qp, lang, visn, lang_bias, visn_bias, n_heads)
 
 
 def answer_head_forward(hp: AnswerHead, pooled):

@@ -50,6 +50,7 @@ from xlxmert_tpu_torch.tasks.sampling import (
     remask_by_rank, step_cells,
 )
 from xlxmert_tpu_torch.utils.device import resolve_device
+from xlxmert_tpu_torch.utils.profiling import span
 
 
 class ObjHeadInt8(nn.Module):
@@ -118,6 +119,13 @@ def _encode_from_lang(sp: SamplerInt8, lang, lang_bias, feats, pos,
     (B, V, H), from the language stack's output (lang_encode, once per
     batch). The last cross layer's language side is not computed."""
     visn, visn_bias = visn_encode(sp.bert, feats, pos, None, n_heads)
+    return _cross_layers(sp, lang, visn, lang_bias, visn_bias, n_heads)
+
+
+def _cross_layers(sp: SamplerInt8, lang, visn, lang_bias, visn_bias,
+                  n_heads: int) -> torch.Tensor:
+    """The cross layers of a decode step -> the final visual hidden
+    states; the last layer's language side is not computed."""
     last = len(sp.bert.x_layers) - 1
     for j, p in enumerate(sp.bert.x_layers):
         lang, visn = cross_layer(p, lang, visn, lang_bias, visn_bias,
@@ -207,29 +215,44 @@ def make_nar_sampler_int8(cfg: LxmertConfig, n_steps: int,
       -> (code (B,V,D) bf16, cluster_ids (B,V) int64, prob (B,V) fp32)
     with the commit/re-mask semantics of tasks/sampling.make_nar_sampler
     (reference imggen_model.py:169-257).
+
+    Its stages are spans (utils/profiling): "xlt.sampler.language" (the
+    language stack and the loop's state), then each step's
+    "xlt.sampler.remask", "xlt.sampler.visual", "xlt.sampler.cross",
+    "xlt.sampler.head" and "xlt.sampler.commit"; `on_step` runs between
+    the head and the commit, outside every span.
     """
     n_cells = grid_size * grid_size
     n_heads = cfg.num_attention_heads
 
     @torch.inference_mode()
     def sample(sp, centroids, input_ids, attention_mask):
-        table, pos, code, ids, lang, lang_bias = _start(
-            sp, centroids, input_ids, attention_mask, n_cells, grid_size,
-            n_heads)
-        prob = torch.zeros(ids.shape, device=ids.device)
+        with span("xlt.sampler.language"):
+            table, pos, code, ids, lang, lang_bias = _start(
+                sp, centroids, input_ids, attention_mask, n_cells,
+                grid_size, n_heads)
+            prob = torch.zeros(ids.shape, device=ids.device)
         mask_feat = sp.mask_feat[None, None, :]
         for i in range(n_steps):
-            vis_mask = remask_by_rank(prob, ((n_steps - i) * n_cells)
-                                      // n_steps)
-            feats = torch.where(vis_mask[..., None], mask_feat, code)
-            logits = _predict_from_lang(sp, lang, lang_bias, feats, pos,
-                                        n_heads)
+            with span("xlt.sampler.remask"):
+                vis_mask = remask_by_rank(prob, ((n_steps - i) * n_cells)
+                                          // n_steps)
+                feats = torch.where(vis_mask[..., None], mask_feat, code)
+            with span("xlt.sampler.visual"):
+                visn, visn_bias = visn_encode(sp.bert, feats, pos, None,
+                                              n_heads)
+            with span("xlt.sampler.cross"):
+                visn = _cross_layers(sp, lang, visn, lang_bias, visn_bias,
+                                     n_heads)
+            with span("xlt.sampler.head"):
+                logits = obj_head_forward(sp.obj_head, visn)
             if on_step is not None:
                 on_step(i, {"feats": feats, "vis_mask": vis_mask}, logits)
-            prob, pred_id = _log_prob_max(logits)
-            code = torch.where(vis_mask[..., None],
-                               F.embedding(pred_id, table), code)
-            ids = torch.where(vis_mask, pred_id, ids)
+            with span("xlt.sampler.commit"):
+                prob, pred_id = _log_prob_max(logits)
+                code = torch.where(vis_mask[..., None],
+                                   F.embedding(pred_id, table), code)
+                ids = torch.where(vis_mask, pred_id, ids)
         return code, ids, prob
 
     return sample

@@ -1,85 +1,114 @@
-"""Tracing and step timing (port of xlxmert_tpu/utils/profiling.py).
+"""Tracing (port of xlxmert_tpu/utils/profiling.py's `trace`) and the
+program's stage spans.
 
+- `span(name)`: a named stage of the program's hot paths
+  ("xlt.engine.language", "xlt.sampler.head", ...). The spans of a path
+  are flat: none opens inside another, so each device launch falls in
+  at most one. Off by default, a span costs one test of a module flag
+  and hands back a shared null context: no allocation, no clock read.
+  After `enable()` every span that closes appends (start_ns, end_ns,
+  name), read on `time.time_ns()`, to a buffer that `drain()` hands
+  over and empties; `disable()` stops recording. A device trace whose
+  clock is tied to `time.time_ns()` (as portbench/lib/trace.py ties
+  torch.profiler's through marker calls) then charges each launch to
+  the stage that issued it.
 - `trace(logdir)`: a torch.profiler context over the CPU and, where
-  there is one, the card; on exit it writes a Chrome trace
-  (`<host>_<pid>.<ms>.pt.trace.json`, TensorBoard's profiler plugin and
-  Perfetto read it) into `logdir`.
-- `annotate(name)`: a named range in the trace (record_function).
-- `StepTimer`: per-step wall time with warm-up skip and a percentile
-  summary; `force` waits for the device of a tensor it is given.
+  there is one, the card; inside it every span also opens a
+  `record_function`, so the stages are ranges of the trace. On exit it
+  writes a Chrome trace (`<host>_<pid>.<ms>.pt.trace.json`, TensorBoard's
+  profiler plugin and Perfetto read it) into `logdir`; without a logdir
+  nothing is written and the caller reads the yielded profiler.
 """
 from __future__ import annotations
 
 import contextlib
 import time
-from typing import Dict, List, Optional
+from typing import List, Optional, Tuple
 
-import numpy as np
+Span = Tuple[int, int, str]
+
+_active = False     # any span work: recording, or ranges inside trace()
+_recording = False
+_ranges = 0         # trace() contexts open
+_spans: List[Span] = []
+_NULL = contextlib.nullcontext()
+
+
+def _update() -> None:
+    global _active
+    _active = _recording or _ranges > 0
+
+
+class _Stage:
+    __slots__ = ("name", "start", "range")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.range = None
+        if _ranges:
+            import torch
+
+            self.range = torch.profiler.record_function(self.name)
+            self.range.__enter__()
+        self.start = time.time_ns() if _recording else None
+        return self
+
+    def __exit__(self, *exc):
+        if self.start is not None:
+            _spans.append((self.start, time.time_ns(), self.name))
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """Context manager for one stage of the program; see the module
+    docstring."""
+    if not _active:
+        return _NULL
+    return _Stage(name)
+
+
+def enable() -> None:
+    """Record every span from here on."""
+    global _recording
+    _recording = True
+    _update()
+
+
+def disable() -> None:
+    """Stop recording; what was recorded stays until `drain()`."""
+    global _recording
+    _recording = False
+    _update()
+
+
+def drain() -> List[Span]:
+    """The spans recorded so far, in the order they closed, as
+    (start_ns, end_ns, name); empties the buffer."""
+    global _spans
+    out, _spans = _spans, []
+    return out
 
 
 @contextlib.contextmanager
-def trace(logdir: str):
+def trace(logdir: Optional[str] = None):
+    global _ranges
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities,
-                 on_trace_ready=torch.profiler.tensorboard_trace_handler(
-                     logdir)) as prof:
-        yield prof
-
-
-def annotate(name: str):
-    import torch
-
-    return torch.profiler.record_function(name)
-
-
-class StepTimer:
-    def __init__(self, skip_first: int = 2):
-        self.skip_first = skip_first
-        self.times: List[float] = []
-        self._n = 0
-        self._t0: Optional[float] = None
-
-    def __enter__(self):
-        self._t0 = time.time()
-        return self
-
-    def __exit__(self, *exc):
-        dt = time.time() - self._t0
-        self._n += 1
-        if self._n > self.skip_first:
-            self.times.append(dt)
-
-    @staticmethod
-    def force(x) -> None:
-        """Wait for the device of the first tensor in `x` (a tensor, or a
-        dict, list or tuple holding one)."""
-        import torch
-
-        stack = [x]
-        while stack:
-            leaf = stack.pop(0)
-            if isinstance(leaf, dict):
-                stack[:0] = list(leaf.values())
-            elif isinstance(leaf, (list, tuple)):
-                stack[:0] = list(leaf)
-            elif isinstance(leaf, torch.Tensor):
-                if leaf.is_cuda:
-                    torch.cuda.synchronize(leaf.device)
-                return
-
-    def summary(self) -> Dict[str, float]:
-        if not self.times:
-            return {}
-        arr = np.asarray(self.times)
-        return {
-            "mean_s": float(arr.mean()),
-            "p50_s": float(np.percentile(arr, 50)),
-            "p95_s": float(np.percentile(arr, 95)),
-            "steps_per_sec": float(1.0 / arr.mean()),
-            "n": len(arr),
-        }
+    handler = (torch.profiler.tensorboard_trace_handler(logdir)
+               if logdir else None)
+    with profile(activities=activities, on_trace_ready=handler) as prof:
+        _ranges += 1
+        _update()
+        try:
+            yield prof
+        finally:
+            _ranges -= 1
+            _update()
