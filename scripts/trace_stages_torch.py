@@ -23,12 +23,21 @@ metrics, as a traced run reads them); then this script prints one line:
   idle_gaps   the benchmark's breakdown with each gap named by the stage
               (outside every stage: the harness's span) that launched
               the operation ending it;
+  counters    the program's counters (utils/profiling.count) over the
+              set-up (the warm-up batch included) and over the window;
 and the cell's summary: VQA `engine_host_ms`, `engine_idle_share`,
 `engine_launches` (the three `xlt.engine.*` stages) beside the harness's
 `enqueue_ms`; t2i `step_host_ms`, `step_device_ms`, `step_launches`
 (one decode step: its five `xlt.sampler.*` stages) beside the harness's
 `sample_ms` and `tiling`, the share of `sample_ms` that the language
-stage and the steps' host time make up. `--spans 0` runs the same traced
+stage and the steps' host time make up. Where the sampler's call is a
+CUDA graph (on the card; its stages then fire only at the capture, in
+the set-up), the t2i summary is the replay's: `replay_host_ms`,
+`replay_device_ms`, `replay_launches` (the `xlt.sampler.replay` stage:
+copy-in, replay, clones), `tiling` its share of `sample_ms`, and
+`replays_a_batch`. The tracer is on from the slice's creation (before
+the warm-up batch), so that a capture is counted; the set-up's spans
+are dropped at the window's start. `--spans 0` runs the same traced
 window with the tracer never enabled, for the tracer's cost (the
 harness's `enqueue_ms.vqa` or `sample_ms.t2i` of the two). The benchmark's
 files are not changed: its slice and record are subclassed in this
@@ -51,6 +60,8 @@ STEP = tuple(f"xlt.sampler.{s}" for s in
              ("remask", "visual", "cross", "head", "commit"))
 # each path's first stage: one a batch
 FIRST = {"vqa": "xlt.serve.inputs", "t2i": "xlt.sampler.language"}
+# the graphed sampler's one stage a batch
+REPLAY = "xlt.sampler.replay"
 
 Span = Tuple[int, int, str]
 
@@ -91,15 +102,20 @@ def by_stage(summary) -> Tuple[Dict[str, float], Dict[str, int],
 
 
 def report(kind: str, spans: Sequence[Span], begin_ns: int, program,
-           harness_spans: Dict[str, List[float]]) -> Dict:
+           harness_spans: Dict[str, List[float]],
+           counters: Optional[Dict[str, Dict[str, int]]] = None) -> Dict:
     """The script's line from the program's spans, the slice's start on
-    the host clock, the second summary (None without a card) and the
-    harness's host clocks (seconds by span)."""
-    first = FIRST[kind]
+    the host clock, the second summary (None without a card), the
+    harness's host clocks (seconds by span) and the program's counters
+    ({"setup": ..., "window": ...})."""
+    graphed = kind == "t2i" and count(spans, REPLAY) > 0
+    first = REPLAY if graphed else FIRST[kind]
     n_before = max(count(spans, first, before_ns=begin_ns), 1)
     host = host_ms(spans, begin_ns)
     out: Dict = {"kind": kind, "batches_before": n_before,
                  "host_ms": {k: v / n_before for k, v in host.items()}}
+    if counters is not None:
+        out["counters"] = counters
     steps_before = max(count(spans, STEP[0], before_ns=begin_ns), 1)
     if kind == "vqa":
         out["engine_host_ms"] = sum(v for k, v in host.items()
@@ -107,6 +123,15 @@ def report(kind: str, spans: Sequence[Span], begin_ns: int, program,
         if harness_spans.get("enqueue"):
             e = harness_spans["enqueue"]
             out["enqueue_ms"] = sum(e) / len(e) * 1e3
+    elif graphed:
+        out["replay_host_ms"] = host.get(REPLAY, 0.0) / n_before
+        if counters is not None:
+            out["replays_a_batch"] = counters["window"].get(
+                "xlt.sampler.graph_replays", 0) / count(spans, REPLAY)
+        if harness_spans.get("sample"):
+            e = harness_spans["sample"]
+            out["sample_ms"] = sum(e) / len(e) * 1e3
+            out["tiling"] = out["replay_host_ms"] / out["sample_ms"]
     else:
         out["step_host_ms"] = sum(host.get(k, 0.0)
                                   for k in STEP) / steps_before
@@ -134,6 +159,9 @@ def report(kind: str, spans: Sequence[Span], begin_ns: int, program,
         out["engine_idle_share"] = sum(100 * idle.get(k, 0.0) / idle_total
                                        for k in engine)
         out["engine_launches"] = sum(n[k] for k in engine) / n_slice
+    elif graphed:
+        out["replay_device_ms"] = dev.get(REPLAY, 0.0) / n_slice
+        out["replay_launches"] = n.get(REPLAY, 0) / n_slice
     else:
         out["step_device_ms"] = sum(dev.get(k, 0.0)
                                     for k in STEP) / steps_slice
@@ -172,14 +200,17 @@ def main(argv=None) -> int:
             self.window_ns = self.begin_ns = None
             self.program = None
             self.program_spans: List[Span] = []
+            self.counters = {"setup": {}, "window": {}}
             state["slice"] = self
+            profiling.drain_counts()
+            if args.spans:      # from the warm-up batch on: its capture
+                profiling.enable()
 
         def due(self) -> bool:
             if self.window_ns is None:
                 self.window_ns = time.time_ns()
                 profiling.drain()   # the warm-up's spans
-                if args.spans:
-                    profiling.enable()
+                self.counters["setup"] = profiling.drain_counts()
             return super().due()
 
         def begin(self) -> None:
@@ -195,6 +226,7 @@ def main(argv=None) -> int:
         def reduce(self) -> None:
             if self.prof is not None and self.done:
                 self.program_spans = profiling.drain()
+                self.counters["window"] = profiling.drain_counts()
                 inside = [s for s in self.program_spans
                           if s[0] >= self.begin_ns]
                 self.program = trace_lib.summarize(
@@ -219,7 +251,7 @@ def main(argv=None) -> int:
                            f"{args.workload}.json")) as f:
         kind = "t2i" if json.load(f)["path"].startswith("t2i") else "vqa"
     line = report(kind, sl.program_spans, sl.begin_ns or time.time_ns(),
-                  sl.program, state["record"].spans)
+                  sl.program, state["record"].spans, sl.counters)
     line.update(workload=args.workload, seed=args.seed, spans=args.spans,
                 spans_recorded=len(sl.program_spans))
     if not args.rehearse:

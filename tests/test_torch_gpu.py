@@ -989,6 +989,146 @@ def test_nar_decode_steps_match_the_cpu(cuda, int8):
             assert chip_smoke.tie_aware_agreement(card, got) >= 0.9
 
 
+# the int8 NAR sampler's CUDA graph: hidden 768, two language and cross
+# layers, one visual layer, 1,000 clusters; the benchmark's batch shape
+SMALL = dict(l_layers=2, x_layers=2, r_layers=1, num_clusters=1000)
+
+
+@pytest.fixture(scope="module")
+def nar_int8():
+    """A calibrated int8 sampler tree on the card, its centroid table and
+    three batches of (ids, mask): two of 64 x 20, one of 32 x 12."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from xlxmert_tpu_torch.serving import lxmert_int8 as engine
+    from xlxmert_tpu_torch.serving import sampling_int8 as si
+    from xlxmert_tpu_torch.tasks import sampling
+
+    dev = torch.device("cuda")
+    cfg = LxmertConfig(**SMALL)
+    params = sampling.random_params(cfg, seed=1)
+    rng = np.random.RandomState(2)
+    cent = rng.randn(1000, 2048).astype(np.float32) * 0.1
+    batches = []
+    for B, L in ((64, 20), (64, 20), (32, 12)):
+        ids = torch.from_numpy(rng.randint(5, 4000, (B, L))).long()
+        ids[1, L - 8:] = 0
+        batches.append((ids.to(dev), (ids > 0).float().to(dev)))
+    sp = si.prepare_sampler_params(params, cfg, cent, dev)
+    table = torch.from_numpy(cent).to(dev)
+    si.calibrate_sampler(sp, table, *batches[0], cfg)
+    engine.apply_calibration(sp)
+    return cfg, sp, table, batches
+
+
+def _graph_counts(fn, *args):
+    """fn(*args) with the tracer on: (its result, the span names, the
+    counters)."""
+    from xlxmert_tpu_torch.utils import profiling
+
+    profiling.drain()
+    profiling.drain_counts()
+    profiling.enable()
+    try:
+        out = fn(*args)
+    finally:
+        profiling.disable()
+    return (out, [name for *_, name in profiling.drain()],
+            profiling.drain_counts())
+
+
+def test_nar_sampler_graph_is_bit_equal_to_its_eager_body(nar_int8):
+    """The graphed call against `_nar_call` on the same inputs: the
+    outputs and what the hook receives at each step, bit for bit; one
+    capture, one replay."""
+    from xlxmert_tpu_torch.serving import sampling_int8 as si
+    from xlxmert_tpu_torch.tasks import sampling
+
+    cfg, sp, table, batches = nar_int8
+    ids, mask = batches[0]
+    got_steps, want_steps = [], []
+    sample = si.make_nar_sampler_int8(
+        cfg, 4, on_step=lambda i, inp, lg: got_steps.append(
+            (i, inp["feats"], inp["vis_mask"], lg)))
+    got, names, counts = _graph_counts(sample, sp, table, ids, mask)
+    assert counts == {si.GRAPHS_CAPTURED: 1, si.GRAPH_REPLAYS: 1}
+    assert names[-1] == "xlt.sampler.replay"
+    assert names.count("xlt.sampler.replay") == 1
+    pos = sampling.grid_positions(8, ids.shape[0], ids.device,
+                                  torch.bfloat16)
+    with torch.inference_mode():
+        want = si._nar_call(
+            sp, table, ids, mask, pos, 4, cfg.num_attention_heads,
+            lambda i, inp, lg: want_steps.append(
+                (i, inp["feats"], inp["vis_mask"], lg)))
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert [s[0] for s in got_steps] == [0, 1, 2, 3]
+    for g, w in zip(got_steps, want_steps):
+        for a, b in zip(g[1:], w[1:]):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_nar_sampler_replays_its_graph_until_shape_or_calibration_changes(
+        nar_int8):
+    """A second call of one shape replays and captures nothing; a new
+    (B, L) captures a second graph; after apply_calibration the next
+    call captures anew. Each call adds one call's launches to the
+    kernels' counts."""
+    from xlxmert_tpu_torch.ops import attention as att
+    from xlxmert_tpu_torch.serving import lxmert_int8 as engine
+    from xlxmert_tpu_torch.serving import sampling_int8 as si
+
+    cfg, sp, table, (a, b, c) = nar_int8
+    per = chip_smoke.sampler_launches(cfg)
+    call = {"int8_dense": per["sample lang"]["int8_dense"]
+            + 4 * per["sample step"]["int8_dense"],
+            "mha_blhd": per["sample lang"]["mha_blhd"]
+            + 4 * per["sample step"]["mha_blhd"]}
+    sample = si.make_nar_sampler_int8(cfg, 4)
+
+    def run(batch):
+        before = (int8_matmul.KERNEL.launches, att.KERNEL.launches)
+        out, _, counts = _graph_counts(sample, sp, table, *batch)
+        assert (int8_matmul.KERNEL.launches - before[0],
+                att.KERNEL.launches - before[1]) == (
+            call["int8_dense"], call["mha_blhd"])
+        return out, (counts.get(si.GRAPHS_CAPTURED, 0),
+                     counts.get(si.GRAPH_REPLAYS, 0))
+
+    first, n = run(a)
+    assert n == (1, 1)
+    assert run(b)[1] == (0, 1)
+    assert run(c)[1] == (1, 1)
+    again, n = run(a)
+    assert n == (0, 1)
+    engine.apply_calibration(sp)    # the same amax: the same scales
+    recaptured, n = run(a)
+    assert n == (1, 1)
+    for x, y, z in zip(first, again, recaptured):
+        assert torch.equal(x, y) and torch.equal(x, z)
+
+
+def test_nar_sampler_graph_hands_out_tensors_of_the_callers_own(nar_int8):
+    """What one call returns and hands the hook is unchanged after the
+    next call of the same shape with other inputs."""
+    from xlxmert_tpu_torch.serving import sampling_int8 as si
+
+    cfg, sp, table, (a, b, _) = nar_int8
+    kept = []
+    sample = si.make_nar_sampler_int8(
+        cfg, 4, on_step=lambda i, inp, lg: kept.append(
+            (inp["feats"], inp["vis_mask"], lg)))
+    first = sample(sp, table, *a)
+    held = list(first) + [t for step in kept for t in step]
+    snap = [t.clone() for t in held]
+    second = sample(sp, table, *b)
+    assert len(kept) == 8
+    assert not torch.equal(first[1], second[1])     # other inputs
+    for t, s in zip(held, snap):
+        assert torch.equal(t, s)
+
+
 def test_fused_mha_grad_check_does_not_depend_on_the_phase_order(cuda):
     """chip_smoke's C1 check after the sampler cases have drawn from the
     same generator first (the order that failed when the fp32 bias

@@ -1,8 +1,10 @@
 """utils/profiling: the stage spans (off: nothing recorded, nothing
-allocated; on: flat (start, end, name) on time.time_ns, drained), the
-stages the int8 and fused serving forwards, the int8 NAR sampler and the
-render record, their outputs with tracing on and off, and the ranges
-`trace()` opens for the spans. CPU, tiny configurations."""
+allocated; on: flat (start, end, name) on time.time_ns, drained) and the
+counters beside them (the same rule), the stages the int8 and fused
+serving forwards, the int8 NAR sampler and the render record, their
+outputs with tracing on and off, the NAR sampler's CPU call (eager: no
+graph, no counter, the loop's values), the calibration version, and the
+ranges `trace()` opens for the spans. CPU, tiny configurations."""
 import time
 
 import numpy as np
@@ -28,9 +30,11 @@ def tracer_left_off():
     """Every test starts and ends with the tracer off and empty."""
     profiling.disable()
     profiling.drain()
+    profiling.drain_counts()
     yield
     profiling.disable()
     profiling.drain()
+    profiling.drain_counts()
 
 
 def recorded(fn, *args):
@@ -69,6 +73,23 @@ def test_on_records_flat_time_ordered_spans_and_drain_empties():
     for (s, e, _), (s2, _, _) in zip(spans, spans[1:]):
         assert s <= e <= s2     # flat: each closes before the next opens
     assert profiling.drain() == []
+
+
+def test_counters_count_only_while_recording_and_drain_empties():
+    profiling.count("xlt.test.off")
+    assert profiling.counts() == {} and not profiling.recording()
+    profiling.enable()
+    assert profiling.recording()
+    profiling.count("xlt.test.a")
+    profiling.count("xlt.test.a", 2)
+    profiling.count("xlt.test.b")
+    profiling.disable()
+    profiling.count("xlt.test.a")       # off again: not counted
+    want = {"xlt.test.a": 3, "xlt.test.b": 1}
+    assert profiling.counts() == want
+    profiling.counts()["xlt.test.a"] = 0    # a copy
+    assert profiling.drain_counts() == want
+    assert profiling.counts() == {} and profiling.drain() == []
 
 
 @pytest.fixture(scope="module")
@@ -149,6 +170,56 @@ def test_nar_sampler_records_its_language_stage_and_five_a_step(sampler):
     assert hooked == [0, 1, 0, 1]
     for a, b in zip(plain, traced):
         assert torch.equal(a, b)
+
+
+def test_nar_sampler_on_the_cpu_runs_its_loop_eagerly(sampler):
+    """No graph off the card: no replay span, both counters at 0, and
+    the values of the decode loop written out from the sampler's parts
+    (language stack, re-mask, prediction, commit), bit for bit."""
+    import torch.nn.functional as F
+
+    from xlxmert_tpu_torch.serving import sampling_int8 as si
+
+    sp, table, ids = sampler
+    mask = (ids > 0).float()
+    n_steps, n_cells, n_heads = 3, GRID * GRID, CFG.num_attention_heads
+    hooked = []
+    sample = si.make_nar_sampler_int8(
+        CFG, n_steps, GRID, on_step=lambda i, inp, lg: hooked.append(
+            (inp["feats"], inp["vis_mask"], lg)))
+    got, names = recorded(sample, sp, table, ids, mask)
+    assert profiling.counts() == {}
+    assert names == ["xlt.sampler.language"] + STEP * n_steps
+    with torch.inference_mode():
+        cb, pos, code, cids, lang, lang_bias = si._start(
+            sp, table, ids, mask, n_cells, GRID, n_heads)
+        prob = torch.zeros(cids.shape)
+        for i in range(n_steps):
+            vis_mask = si.remask_by_rank(
+                prob, ((n_steps - i) * n_cells) // n_steps)
+            feats = torch.where(vis_mask[..., None],
+                                sp.mask_feat[None, None, :], code)
+            logits = si._predict_from_lang(sp, lang, lang_bias, feats, pos,
+                                           n_heads)
+            for a, b in zip(hooked[i], (feats, vis_mask, logits)):
+                assert torch.equal(a, b)
+            prob, pred_id = si._log_prob_max(logits)
+            code = torch.where(vis_mask[..., None],
+                               F.embedding(pred_id, cb), code)
+            cids = torch.where(vis_mask, pred_id, cids)
+    for a, b in zip(got, (code, cids, prob)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_apply_calibration_bumps_the_calibration_version(sampler):
+    from xlxmert_tpu_torch.serving import lxmert_int8 as engine
+
+    sp = sampler[0]
+    v = engine.calibration_version()
+    engine.apply_calibration(sp)        # the same amax: the same scales
+    assert engine.calibration_version() == v + 1
+    engine.apply_calibration()
+    assert engine.calibration_version() == v + 2
 
 
 def test_render_records_its_span():

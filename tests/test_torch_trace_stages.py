@@ -2,7 +2,8 @@
 second summary over the harness's spans and the program's charges a
 launch inside a stage to the stage and one outside every stage to the
 harness's span, and the script's line reads each stage's host time
-before the slice and its device time, launches and idle share in it."""
+before the slice and its device time, launches and idle share in it;
+for a graphed sampler, the replay stage and the counters."""
 import importlib.util
 import os
 from types import SimpleNamespace
@@ -113,3 +114,31 @@ def test_the_t2i_line_reads_a_decode_step_and_the_tiling():
     assert line["sample_ms"] == pytest.approx(22.4)
     assert line["tiling"] == pytest.approx(22.0 / 22.4)
     assert "step_device_ms" not in line     # no device summary
+
+
+def test_the_t2i_line_of_a_graphed_sampler_reads_the_replay():
+    mod = script()
+    replay = "xlt.sampler.replay"
+    begin = 10_000_000
+    before = [(0, 500_000, replay), (500_000, 2_000_000, "xlt.render"),
+              (2_000_000, 2_500_000, replay),
+              (2_500_000, 4_000_000, "xlt.render")]
+    # in the slice: the launches at 150, 300 and 320 inside the replay
+    spans = before + [(begin + 110, begin + 400, replay)]
+    harness = [(100, 500, "portbench.sample"), (600, 700, "portbench.render")]
+    counters = {"setup": {"xlt.sampler.graphs_captured": 1,
+                          "xlt.sampler.graph_replays": 1},
+                "window": {"xlt.sampler.graph_replays": 3}}
+    line = mod.report("t2i", spans, begin,
+                      summarize(harness + [(110, 400, replay)]),
+                      {"sample": [0.0006, 0.0004]}, counters)
+    assert line["batches_before"] == 2
+    assert line["replay_host_ms"] == pytest.approx(0.5)
+    assert line["sample_ms"] == pytest.approx(0.5)
+    assert line["tiling"] == pytest.approx(1.0)
+    assert line["replays_a_batch"] == 1.0
+    assert line["counters"] == counters
+    assert line["replay_launches"] == 3
+    assert line["replay_device_ms"] == pytest.approx(60e-6)
+    assert line["launches"]["portbench.sample"] == 1
+    assert not {"step_host_ms", "step_device_ms", "step_launches"} & set(line)

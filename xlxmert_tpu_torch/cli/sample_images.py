@@ -238,14 +238,21 @@ def sample_images(ns, inputs: Dict, on_ready: Optional[Callable] = None,
     passed to the sampler (tasks/sampling.py). Returns "ids" (N, V) and
     "codes" (N, V, D, on the device) of the final grids, "images" (N, S,
     S, 3) float32 in [0, 1] or None, per batch "sample_s" and "render_s"
-    (host clock, each ended by a synchronize), and the "engine" (the
-    calibrated int8 tree or the bf16 model) and "generator" it ran.
+    (host clock, each ended by a synchronize), the "engine" (the
+    calibrated int8 tree or the bf16 model) and "generator" it ran, and
+    "graphs": the int8 NAR sampler's CUDA graphs captured and replayed
+    (utils/profiling's counters, recorded for the run and printed at its
+    end; none off the card).
     ns.profile, a directory, traces the batches after the first one
     into it (utils/profiling.trace; the first where it is the only
     one)."""
     import torch
 
     from xlxmert_tpu_torch.models.gan import render
+    from xlxmert_tpu_torch.serving.sampling_int8 import (
+        GRAPH_REPLAYS, GRAPHS_CAPTURED,
+    )
+    from xlxmert_tpu_torch.utils import profiling
     from xlxmert_tpu_torch.utils.device import resolve_device
     from xlxmert_tpu_torch.utils.profiling import trace
 
@@ -270,6 +277,11 @@ def sample_images(ns, inputs: Dict, on_ready: Optional[Callable] = None,
     sample_s, render_s = [], []
     profile_from = B if len(sentences) > B else 0
     tracing = contextlib.ExitStack()
+    counted = profiling.counts()
+    if not profiling.recording():   # the counters for this run alone
+        profiling.enable()
+        tracing.callback(profiling.drain)
+        tracing.callback(profiling.disable)
     with tracing:
         for s in range(0, len(sentences), B):
             if ns.profile and s == profile_from:
@@ -312,12 +324,17 @@ def sample_images(ns, inputs: Dict, on_ready: Optional[Callable] = None,
                               batch_sents, step_dir, s)
             else:
                 np.save(out_dir / f"codes_{s:04d}.npy", all_ids[-1])
+    now = profiling.counts()
+    graphs = {k: now.get(k, 0) - counted.get(k, 0)
+              for k in (GRAPHS_CAPTURED, GRAPH_REPLAYS)}
     print(f"outputs in {out_dir}")
+    print(f"sampler graphs: {graphs[GRAPHS_CAPTURED]} captured, "
+          f"{graphs[GRAPH_REPLAYS]} replayed")
     return {"ids": np.concatenate(all_ids) if all_ids else None,
             "codes": torch.cat(all_codes) if all_codes else None,
             "images": np.concatenate(all_imgs) if all_imgs else None,
             "sample_s": sample_s, "render_s": render_s, "engine": engine,
-            "generator": gen}
+            "generator": gen, "graphs": graphs}
 
 
 def png_bytes(img: np.ndarray) -> bytes:

@@ -12,7 +12,9 @@ Each source exports `<name>_launch`, which returns the `cudaError_t` of
 its launch, and `<name>_error_string`;
 `Kernel.launch` raises if it is not 0 and otherwise adds one to the
 kernel's launch count, which is how a run shows that it went through the
-kernel. Nothing here runs at import: the CPU tests import every module.
+kernel. A count means the launches a call makes: a CUDA graph's replay
+adds those its capture made (`launch_counts`, `add_launches`). Nothing
+here runs at import: the CPU tests import every module.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import List, NamedTuple, Optional, Sequence
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -54,6 +56,10 @@ def find_nvcc() -> str:
                        "the card)")
 
 
+# every Kernel made, in the order the modules made them
+KERNELS: List["Kernel"] = []
+
+
 class Kernel:
     """One CUDA source, its shared library and its launch count.
 
@@ -70,6 +76,7 @@ class Kernel:
         self.build_log = ""
         self._lib: Optional[ctypes.CDLL] = None
         self._lock = threading.Lock()
+        KERNELS.append(self)
 
     # -- build -------------------------------------------------------------
     def sources(self) -> List[str]:
@@ -140,6 +147,18 @@ class Kernel:
             raise RuntimeError(f"{self.name}: launch failed with CUDA error "
                                f"{code} ({msg.decode()})")
         self.launches += 1
+
+
+def launch_counts() -> Dict[Kernel, int]:
+    """Each kernel's launch count now."""
+    return {k: k.launches for k in KERNELS}
+
+
+def add_launches(counts: Dict[Kernel, int]) -> None:
+    """Add `counts` (negative to take launches back) to the kernels'
+    launch counts."""
+    for k, n in counts.items():
+        k.launches += n
 
 
 def build_all(kernels: Sequence[Kernel], verbose: bool = True) -> float:

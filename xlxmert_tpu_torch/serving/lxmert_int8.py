@@ -553,9 +553,21 @@ def calibrate(qp: LxmertInt8, head_qp: AnswerHead, batches,
     return calibrate_forward(run, (qp, head_qp), batches)
 
 
+# bumped by every apply_calibration: a CUDA graph captured before it
+# holds the old scales as launch arguments (serving/sampling_int8)
+_CALIBRATION_VERSION = 0
+
+
+def calibration_version() -> int:
+    return _CALIBRATION_VERSION
+
+
 def apply_calibration(*trees: nn.Module) -> None:
     """Give every site that recorded an amax its static scale, in place:
-    QuantWeights switch to the static int8 path."""
+    QuantWeights switch to the static int8 path. Bumps
+    calibration_version()."""
+    global _CALIBRATION_VERSION
+    _CALIBRATION_VERSION += 1
     for _, m in calibration_sites(*trees):
         if m.amax is None:
             continue

@@ -25,6 +25,13 @@ The cluster logits come out of the int8 dense in bf16 and are compared
 in fp32: ties at the maximum among the clusters are common, and argmax
 takes the first, as jnp.argmax does.
 
+On CUDA the NAR sampler's whole call (language stack, loop state and
+every decode step: ~2,650 launches at B=64 and full width) is one CUDA
+graph per batch shape, captured at its first call and replayed after:
+the host then spends a copy-in, a graph launch and the output clones a
+call instead of every launch (`_NarGraph`). The CPU runs the call
+eagerly.
+
 Calibration: `sampling_calibration_batches` builds code grids at the
 mask ratios the decode loop visits (step 0 all mask_feat, later steps
 mostly committed centroids), so the static scales cover the whole
@@ -40,7 +47,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from xlxmert_tpu_torch.core.config import LxmertConfig
+from xlxmert_tpu_torch.ops._build import add_launches, launch_counts
 from xlxmert_tpu_torch.ops.quant import quantize_weight
+from xlxmert_tpu_torch.serving import lxmert_int8 as engine
 from xlxmert_tpu_torch.serving.lxmert_int8 import (
     LayerNorm, LxmertInt8, _qw, calibrate_forward, cross_encode,
     lang_encode, layer_norm, visn_encode,
@@ -50,7 +59,7 @@ from xlxmert_tpu_torch.tasks.sampling import (
     remask_by_rank, step_cells,
 )
 from xlxmert_tpu_torch.utils.device import resolve_device
-from xlxmert_tpu_torch.utils.profiling import span
+from xlxmert_tpu_torch.utils.profiling import count, span
 
 
 class ObjHeadInt8(nn.Module):
@@ -196,15 +205,137 @@ def _log_prob_max(logits: torch.Tensor):
 
 def _start(sp: SamplerInt8, centroids, input_ids, attention_mask,
            n_cells: int, grid_size: int, n_heads: int):
+    pos = grid_positions(grid_size, input_ids.shape[0], input_ids.device,
+                         torch.bfloat16)
+    return _begin(sp, centroids, input_ids, attention_mask, n_cells, pos,
+                  n_heads)
+
+
+def _begin(sp: SamplerInt8, centroids, input_ids, attention_mask,
+           n_cells: int, pos, n_heads: int):
+    """_start with the grid's positions given: the loop's state and the
+    language stack, with no copy from the host."""
     B, dev = input_ids.shape[0], input_ids.device
     table = centroids.to(torch.bfloat16)
-    pos = grid_positions(grid_size, B, dev, torch.bfloat16)
     code = torch.zeros(B, n_cells, table.shape[1], dtype=torch.bfloat16,
                        device=dev)
     ids = torch.zeros(B, n_cells, dtype=torch.long, device=dev)
     lang, lang_bias = lang_encode(sp.bert, input_ids, attention_mask,
                                   n_heads)
     return table, pos, code, ids, lang, lang_bias
+
+
+def _nar_call(sp: SamplerInt8, centroids, input_ids, attention_mask, pos,
+              n_steps: int, n_heads: int, on_step: StepHook = None):
+    """One call of the int8 NAR sampler, eager (make_nar_sampler_int8's
+    body on the CPU, and what it captures on CUDA): the language stack
+    and the loop's state, then `n_steps` decode steps over the grid
+    positions `pos` (B, V, 4) bf16. -> (code, ids, prob)."""
+    n_cells = pos.shape[1]
+    with span("xlt.sampler.language"):
+        table, pos, code, ids, lang, lang_bias = _begin(
+            sp, centroids, input_ids, attention_mask, n_cells, pos, n_heads)
+        prob = torch.zeros(ids.shape, device=ids.device)
+    mask_feat = sp.mask_feat[None, None, :]
+    for i in range(n_steps):
+        with span("xlt.sampler.remask"):
+            vis_mask = remask_by_rank(prob, ((n_steps - i) * n_cells)
+                                      // n_steps)
+            feats = torch.where(vis_mask[..., None], mask_feat, code)
+        with span("xlt.sampler.visual"):
+            visn, visn_bias = visn_encode(sp.bert, feats, pos, None,
+                                          n_heads)
+        with span("xlt.sampler.cross"):
+            visn = _cross_layers(sp, lang, visn, lang_bias, visn_bias,
+                                 n_heads)
+        with span("xlt.sampler.head"):
+            logits = obj_head_forward(sp.obj_head, visn)
+        if on_step is not None:
+            on_step(i, {"feats": feats, "vis_mask": vis_mask}, logits)
+        with span("xlt.sampler.commit"):
+            prob, pred_id = _log_prob_max(logits)
+            code = torch.where(vis_mask[..., None],
+                               F.embedding(pred_id, table), code)
+            ids = torch.where(vis_mask, pred_id, ids)
+    return code, ids, prob
+
+
+# the counters (utils/profiling.count) of the NAR sampler's CUDA graphs
+GRAPHS_CAPTURED = "xlt.sampler.graphs_captured"
+GRAPH_REPLAYS = "xlt.sampler.graph_replays"
+
+
+def _engine_state():
+    """What the engine's module switches and calibration bake into a
+    captured call: the scales and the attention route."""
+    return (engine.calibration_version(), engine._ATTENTION_IMPL,
+            engine._INT8_ATTENTION, engine._attention_core)
+
+
+class _NarGraph:
+    """One NAR call (`_nar_call`) captured as a CUDA graph for one batch
+    shape, tree, centroid table and engine state, and replayed.
+
+    Capture: an eager warm-up on a side stream (the kernels' first-use
+    set-up), then the call on static inputs, its grid positions built
+    once beforehand (a copy from the host cannot be captured). With
+    `keep_steps` each step's feats, vis_mask and logits stay in buffers
+    of their own. The kernels' launch counts come back to what they
+    were: a replay adds the launches the capture made.
+
+    A call copies the inputs in, replays, and hands back clones of the
+    outputs and of the kept steps, so nothing the caller holds changes
+    at the next replay."""
+
+    def __init__(self, sp, centroids, input_ids, attention_mask,
+                 n_steps: int, grid_size: int, n_heads: int,
+                 keep_steps: bool):
+        # what the graph reads and writes stays alive with it: the tree's
+        # weights, the static inputs and positions, the kept steps
+        self.sp = sp
+        self.device = input_ids.device
+        self.input_ids = input_ids.clone()
+        self.attention_mask = attention_mask.clone()
+        self.pos = grid_positions(grid_size, input_ids.shape[0], self.device,
+                                  torch.bfloat16)
+        self.steps = []
+
+        def keep(i, inputs, logits):
+            self.steps.append((inputs["feats"], inputs["vis_mask"], logits))
+
+        def call(hook):
+            return _nar_call(sp, centroids, self.input_ids,
+                             self.attention_mask, self.pos, n_steps,
+                             n_heads, hook)
+
+        before = launch_counts()
+        with torch.cuda.device(self.device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                call(None)
+            torch.cuda.current_stream().wait_stream(side)
+            warm = launch_counts()
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                self.out = call(keep if keep_steps else None)
+        made = launch_counts()
+        self.launches = {k: n - warm.get(k, 0) for k, n in made.items()}
+        add_launches({k: before.get(k, 0) - n for k, n in made.items()})
+        count(GRAPHS_CAPTURED)
+
+    def __call__(self, input_ids, attention_mask, on_step: StepHook):
+        with span("xlt.sampler.replay"), torch.cuda.device(self.device):
+            self.input_ids.copy_(input_ids)
+            self.attention_mask.copy_(attention_mask)
+            self.graph.replay()
+            add_launches(self.launches)
+            out = tuple(t.clone() for t in self.out)
+            steps = [tuple(t.clone() for t in step) for step in self.steps]
+        count(GRAPH_REPLAYS)
+        for i, (feats, vis_mask, logits) in enumerate(steps):
+            on_step(i, {"feats": feats, "vis_mask": vis_mask}, logits)
+        return out
 
 
 def make_nar_sampler_int8(cfg: LxmertConfig, n_steps: int,
@@ -216,44 +347,44 @@ def make_nar_sampler_int8(cfg: LxmertConfig, n_steps: int,
     with the commit/re-mask semantics of tasks/sampling.make_nar_sampler
     (reference imggen_model.py:169-257).
 
-    Its stages are spans (utils/profiling): "xlt.sampler.language" (the
-    language stack and the loop's state), then each step's
-    "xlt.sampler.remask", "xlt.sampler.visual", "xlt.sampler.cross",
-    "xlt.sampler.head" and "xlt.sampler.commit"; `on_step` runs between
-    the head and the commit, outside every span.
+    On the CPU a call runs eagerly (`_nar_call`). Its stages are spans
+    (utils/profiling): "xlt.sampler.language" (the language stack and
+    the loop's state), then each step's "xlt.sampler.remask",
+    "xlt.sampler.visual", "xlt.sampler.cross", "xlt.sampler.head" and
+    "xlt.sampler.commit"; `on_step` runs between the head and the
+    commit, outside every span.
+
+    On CUDA the whole call is one CUDA graph (`_NarGraph`), captured at
+    the first call of each batch shape (B, L) and input types, tree `sp`,
+    centroid table (its storage) and engine state (calibration_version,
+    the attention route), and replayed at the next ones: the stages'
+    spans fire only at a capture; a call is the span
+    "xlt.sampler.replay" (copy-in, replay, the clones), and the
+    counters GRAPHS_CAPTURED and GRAPH_REPLAYS count. `on_step` runs
+    after the replay, for each step in order, with clones of the step's
+    feats, vis_mask and logits (the values it gets on the CPU).
     """
-    n_cells = grid_size * grid_size
     n_heads = cfg.num_attention_heads
+    graphs: Dict = {}
 
     @torch.inference_mode()
     def sample(sp, centroids, input_ids, attention_mask):
-        with span("xlt.sampler.language"):
-            table, pos, code, ids, lang, lang_bias = _start(
-                sp, centroids, input_ids, attention_mask, n_cells,
-                grid_size, n_heads)
-            prob = torch.zeros(ids.shape, device=ids.device)
-        mask_feat = sp.mask_feat[None, None, :]
-        for i in range(n_steps):
-            with span("xlt.sampler.remask"):
-                vis_mask = remask_by_rank(prob, ((n_steps - i) * n_cells)
-                                          // n_steps)
-                feats = torch.where(vis_mask[..., None], mask_feat, code)
-            with span("xlt.sampler.visual"):
-                visn, visn_bias = visn_encode(sp.bert, feats, pos, None,
-                                              n_heads)
-            with span("xlt.sampler.cross"):
-                visn = _cross_layers(sp, lang, visn, lang_bias, visn_bias,
-                                     n_heads)
-            with span("xlt.sampler.head"):
-                logits = obj_head_forward(sp.obj_head, visn)
-            if on_step is not None:
-                on_step(i, {"feats": feats, "vis_mask": vis_mask}, logits)
-            with span("xlt.sampler.commit"):
-                prob, pred_id = _log_prob_max(logits)
-                code = torch.where(vis_mask[..., None],
-                                   F.embedding(pred_id, table), code)
-                ids = torch.where(vis_mask, pred_id, ids)
-        return code, ids, prob
+        if input_ids.device.type != "cuda":
+            pos = grid_positions(grid_size, input_ids.shape[0],
+                                 input_ids.device, torch.bfloat16)
+            return _nar_call(sp, centroids, input_ids, attention_mask, pos,
+                             n_steps, n_heads, on_step)
+        key = (tuple(input_ids.shape), input_ids.dtype,
+               tuple(attention_mask.shape), attention_mask.dtype,
+               input_ids.device, id(sp),
+               centroids.data_ptr(), tuple(centroids.shape),
+               centroids.stride(), centroids.dtype, _engine_state())
+        graph = graphs.get(key)
+        if graph is None:
+            graph = graphs[key] = _NarGraph(
+                sp, centroids, input_ids, attention_mask, n_steps,
+                grid_size, n_heads, on_step is not None)
+        return graph(input_ids, attention_mask, on_step)
 
     return sample
 

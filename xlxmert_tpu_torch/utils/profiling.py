@@ -12,6 +12,11 @@ program's stage spans.
   clock is tied to `time.time_ns()` (as portbench/lib/trace.py ties
   torch.profiler's through marker calls) then charges each launch to
   the stage that issued it.
+- `count(name)`: a counter of how often a mechanism of the program
+  engages ("xlt.sampler.graphs_captured", ...), beside the spans and
+  under the same rule: off, one flag test; after `enable()` it adds to
+  a total that `counts()` reads and `drain_counts()` hands over and
+  empties.
 - `trace(logdir)`: a torch.profiler context over the CPU and, where
   there is one, the card; inside it every span also opens a
   `record_function`, so the stages are ranges of the trace. On exit it
@@ -23,7 +28,7 @@ from __future__ import annotations
 
 import contextlib
 import time
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 Span = Tuple[int, int, str]
 
@@ -31,6 +36,7 @@ _active = False     # any span work: recording, or ranges inside trace()
 _recording = False
 _ranges = 0         # trace() contexts open
 _spans: List[Span] = []
+_counts: Dict[str, int] = {}
 _NULL = contextlib.nullcontext()
 
 
@@ -69,6 +75,30 @@ def span(name: str):
     if not _active:
         return _NULL
     return _Stage(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add n to the counter `name` while recording; see the module
+    docstring."""
+    if _recording:
+        _counts[name] = _counts.get(name, 0) + n
+
+
+def counts() -> Dict[str, int]:
+    """The counters' totals so far (a copy)."""
+    return dict(_counts)
+
+
+def drain_counts() -> Dict[str, int]:
+    """The counters' totals so far; empties them."""
+    global _counts
+    out, _counts = _counts, {}
+    return out
+
+
+def recording() -> bool:
+    """Whether spans and counters are being recorded."""
+    return _recording
 
 
 def enable() -> None:
