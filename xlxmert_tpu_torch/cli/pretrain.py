@@ -70,12 +70,27 @@ def eval_generator(device, epoch: int, batch_index: int):
         1_000_003 * epoch + batch_index)
 
 
+def pretrain_step(eng, state, batch, centroids, step: int):
+    """One step of the task round-robin, as `pretrain()`'s loop takes it
+    (and the port's benchmark drives it): the task of global step `step`
+    (`eng.task_for_step`) and `eng.train_step` on the host batch. Nothing
+    waits for the card: the loss stays on it. Inside a profiler trace
+    the step is the range "train_step <task>" around its stage spans.
+    Returns (task, metrics as device tensors)."""
+    import torch
+
+    task = eng.task_for_step(step)
+    with torch.profiler.record_function(f"train_step {task}"):
+        metrics = eng.train_step(state, batch, task, centroids)
+    return task, metrics
+
+
 def pretrain(eng, state, train_ds, valid_ds, cfg, centroids, logger,
              start_epoch: int = 0, on_step: Optional[Callable] = None,
              profile: int = 0) -> Dict[str, float]:
     """The epoch loop: cfg.epochs - start_epoch epochs of shuffled full
-    batches through `eng.train_step`, the task picked by
-    `eng.task_for_step` round-robin; then each task's mean loss over
+    batches through `pretrain_step` (the task picked round-robin; the
+    loss read back every 50 steps); then each task's mean loss over
     `valid_ds` and Epoch%02d_LXRT.msgpack under cfg.output (with
     cfg.save_full_state also Epoch%02d_FULL.msgpack, horizon
     eng.total_steps), written on a background thread (waited for before
@@ -83,8 +98,9 @@ def pretrain(eng, state, train_ds, valid_ds, cfg, centroids, logger,
     after every step. `profile` > 0 traces that many steps of the first
     epoch into cfg.output/profile (utils/profiling.trace), starting
     after min(5, steps_per_epoch - profile) steps and ending early with
-    the epoch; each step is the range "train_step <task>". Returns the
-    last epoch's {valid/<task>: loss}."""
+    the epoch; each step is the range "train_step <task>" around its
+    `xlt.train.*` stages. Returns the last epoch's {valid/<task>:
+    loss}."""
     from xlxmert_tpu_torch.core.checkpoint import (
         AsyncCheckpointer, epoch_ckpt_name, train_state_to_tree,
     )
@@ -93,7 +109,7 @@ def pretrain(eng, state, train_ds, valid_ds, cfg, centroids, logger,
     from xlxmert_tpu_torch.core.metrics import LossMeter
     from xlxmert_tpu_torch.data.io import PrefetchLoader
     from xlxmert_tpu_torch.parallel import mesh as pmesh
-    from xlxmert_tpu_torch.utils.profiling import span, trace
+    from xlxmert_tpu_torch.utils.profiling import trace
 
     steps_per_epoch = max(pmesh.agree_min(len(train_ds)) // cfg.batch_size,
                           1)
@@ -121,10 +137,8 @@ def pretrain(eng, state, train_ds, valid_ds, cfg, centroids, logger,
                         tracing.enter_context(trace(profile_dir))
                     elif epoch == start_epoch and i == profile_start + profile:
                         tracing.close()
-                    task = eng.task_for_step(global_step)
-                    with span(f"train_step {task}"):
-                        metrics = eng.train_step(state, batch, task,
-                                                 centroids)
+                    task, metrics = pretrain_step(
+                        eng, state, batch, centroids, global_step)
                     if i % 50 == 0:
                         logger.scalars(global_step, {
                             f"{task}/loss": float(metrics["total_loss"]),

@@ -24,7 +24,12 @@ leaf is `bias`, `scale` (a 1-D `weight` converts to it) or
 rule "LayerNorm.weight" would decay.
 
 Parameters are updated in place (`torch.no_grad`), which saves a copy
-of the model per update; the JAX package returns new arrays.
+of the model per update; the JAX package returns new arrays. The update
+runs over every updated tensor at once (`torch._foreach_*`, a few
+launches an op on the card instead of a dozen a tensor), op for op the
+arithmetic a per-tensor loop would do, so bit-equal to it. A step's
+global norm and clip factor run under the stage span `xlt.train.clip`,
+its update under `xlt.train.optimizer` (utils/profiling.span).
 
 `Adam` is the GAN trainer's `optax.adam(lr, b1, b2, eps)`
 (tasks/train_generator.py): one step count for the whole tree, bias
@@ -39,6 +44,7 @@ import numpy as np
 import torch
 
 from xlxmert_tpu_torch.core.convert import _fold_indices
+from xlxmert_tpu_torch.utils.profiling import span
 
 
 def linear_warmup_decay(lr: float, total_steps: int,
@@ -93,7 +99,8 @@ class ReferenceAdamW:
     `used_mask` (pre-training's per-task skip, torch's grad-is-None
     rule): a parameter outside `used` gets no update and keeps its `m`,
     `v` and `count`; the schedule still steps, and the clip norm is
-    taken over the gradients given. `norm` ({name: gradient} -> the
+    taken over the gradients given (`step(grads, norm=n)` takes a
+    global norm the caller already has). `norm` ({name: gradient} -> the
     global norm) is replaced where parameters are sharded (a tensor-
     parallel run sums the shards' squares over the model group). State:
     per-parameter `count`, `m` and `v`, and the schedule position
@@ -122,7 +129,8 @@ class ReferenceAdamW:
 
     @torch.no_grad()
     def step(self, grads: Dict[str, Optional[torch.Tensor]],
-             used: Optional[AbstractSet[str]] = None) -> None:
+             used: Optional[AbstractSet[str]] = None,
+             norm: Optional[torch.Tensor] = None) -> None:
         # scalars are float32 values (as JAX's weak-typed constants round
         # to the fp32 leaves' type) passed to torch as Python floats
         f32 = np.float32
@@ -130,30 +138,55 @@ class ReferenceAdamW:
         present = {n: g for n, g in grads.items() if g is not None}
         clip = None
         if self.clip_grad_norm and self.clip_grad_norm > 0 and present:
-            norm = self.norm(present)
-            clip = torch.clamp(float(f32(self.clip_grad_norm))
-                               / (norm + float(f32(1e-6))), max=1.0)
+            with span("xlt.train.clip"):
+                if norm is None:
+                    norm = self.norm(present)
+                clip = torch.clamp(float(f32(self.clip_grad_norm))
+                                   / (norm + float(f32(1e-6))), max=1.0)
         b1, b2 = f32(self.b1), f32(self.b2)
         c1, c2 = float(f32(1 - self.b1)), float(f32(1 - self.b2))
         wd = float(lr_t * f32(self.weight_decay))
         eps = float(f32(self.eps))
-        for name, p in self.params.items():
-            if used is not None and name not in used:
-                continue
-            g = grads.get(name)
-            g = torch.zeros_like(p) if g is None else g.to(p.dtype)
+        names = [n for n in self.params if used is None or n in used]
+        if not names:
+            self.sched_step += 1
+            return
+        with span("xlt.train.optimizer"):
+            ps = [self.params[n] for n in names]
+            gs = [torch.zeros_like(p) if grads.get(n) is None
+                  else grads[n].to(p.dtype) for n, p in zip(names, ps)]
             if clip is not None:
-                g = g * clip
-            m = float(b1) * self.m[name] + c1 * g
-            v = float(b2) * self.v[name] + c2 * g * g
-            self.count[name] += 1
-            t = f32(self.count[name])
-            step_scale = f32(np.sqrt(f32(1) - b2 ** t) / (f32(1) - b1 ** t))
-            upd = float(f32(-lr_t) * step_scale) * m / (torch.sqrt(v) + eps)
-            if self.decay[name] and self.weight_decay:
-                upd = upd - wd * (p + upd)
-            p.add_(upd)
-            self.m[name], self.v[name] = m, v
+                gs = torch._foreach_mul(gs, clip)
+            # m = b1 m + c1 g; v = b2 v + (c2 g) g, each product rounded
+            m = torch._foreach_add(
+                torch._foreach_mul([self.m[n] for n in names], float(b1)),
+                torch._foreach_mul(gs, c1))
+            v = torch._foreach_add(
+                torch._foreach_mul([self.v[n] for n in names], float(b2)),
+                torch._foreach_mul(torch._foreach_mul(gs, c2), gs))
+            scales = []
+            for n in names:
+                self.count[n] += 1
+                t = f32(self.count[n])
+                step_scale = f32(np.sqrt(f32(1) - b2 ** t)
+                                 / (f32(1) - b1 ** t))
+                scales.append(float(f32(-lr_t) * step_scale))
+            # upd = (scale m) / (sqrt(v) + eps)
+            upd = list(torch._foreach_div(
+                torch._foreach_mul(m, scales),
+                torch._foreach_add(torch._foreach_sqrt(v), eps)))
+            if self.weight_decay:
+                # upd - wd (p + upd) where the parameter decays
+                idx = [i for i, n in enumerate(names) if self.decay[n]]
+                if idx:
+                    u = [upd[i] for i in idx]
+                    decayed = torch._foreach_sub(u, torch._foreach_mul(
+                        torch._foreach_add([ps[i] for i in idx], u), wd))
+                    for i, d in zip(idx, decayed):
+                        upd[i] = d
+            torch._foreach_add_(ps, upd)
+            for n, a, b in zip(names, m, v):
+                self.m[n], self.v[n] = a, b
         self.sched_step += 1
 
 

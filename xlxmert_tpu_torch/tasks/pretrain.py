@@ -32,6 +32,15 @@ gradients are averaged over the data group; the clip's global norm sums
 the sharded leaves' squares over the model group and counts each
 replicated leaf once. The losses are the global batch's.
 
+A training step's stages are flat spans (utils/profiling.span), so each
+launch falls in one: `xlt.train.inputs` (the batch's placement, the
+masks and labels), `xlt.train.forward`, `xlt.train.loss`,
+`xlt.train.backward` (autograd, and the data group's mean), then
+`xlt.train.clip` (the global norm) and `xlt.train.optimizer` in
+core/optim; `eval_step`'s forward takes the first three. Counters:
+`xlt.train.steps.<task>` a step, and `xlt.train.params_skipped`, the
+parameters the task's loss does not reach, which AdamW leaves.
+
 `chained_train_step(task, k)` runs k steps with one fetch of their mean
 loss at the end, on one placed batch or, with per_step_batches=True, on
 the k slices of `place_stacked`'s stacked batches, as the JAX package's
@@ -67,6 +76,7 @@ from xlxmert_tpu_torch.parallel.sharding import TensorParallel, shard_params
 from xlxmert_tpu_torch.tasks.finetune import TrainState
 from xlxmert_tpu_torch.utils.boxes import box_position
 from xlxmert_tpu_torch.utils.device import resolve_device
+from xlxmert_tpu_torch.utils.profiling import count, span
 
 _LANG_TAILS = ("lang_self_att", "lang_inter", "lang_output")
 _VISN_TAILS = ("visn_self_att", "visn_inter", "visn_output")
@@ -343,25 +353,31 @@ class PretrainEngine:
         """One task's forward on a placed batch: its losses (fp32), and
         qa_acc with the QA task. Dropout applies in train mode."""
         cfg = self.cfg
-        input_ids, attn, feats, vis_mask, labels = build_inputs_and_labels(
-            batch, generator, task, cfg, centroids, self.compute_dtype,
-            self.model_cfg.vocab_size, self.mask_token_id)
-        B = input_ids.shape[0]
-        pos = (batch["boxes"] if "boxes" in batch
-               else self.box_pos[None].expand(B, *self.box_pos.shape))
-        out = model(input_ids, feats, pos, attention_mask=attn,
-                    vis_mask=vis_mask, centroids=centroids,
-                    word_embedding_matrix=get_word_embedding_matrix(model),
-                    heads=_task_heads(task, cfg),
-                    generator=generator if model.training else None)
-        losses = pretrain_losses(out, labels, task, cfg.visual_loss_keys,
-                                 cfg.task_qa)
-        if "qa_pred" in losses:
-            qa = labels["qa_labels"]
-            valid = qa >= 0
-            correct = (losses.pop("qa_pred") == qa) & valid
-            losses["qa_acc"] = (correct.sum().float()
-                                / valid.sum().clamp(min=1))
+        with span("xlt.train.inputs"):
+            input_ids, attn, feats, vis_mask, labels = \
+                build_inputs_and_labels(
+                    batch, generator, task, cfg, centroids,
+                    self.compute_dtype, self.model_cfg.vocab_size,
+                    self.mask_token_id)
+            B = input_ids.shape[0]
+            pos = (batch["boxes"] if "boxes" in batch
+                   else self.box_pos[None].expand(B, *self.box_pos.shape))
+        with span("xlt.train.forward"):
+            out = model(input_ids, feats, pos, attention_mask=attn,
+                        vis_mask=vis_mask, centroids=centroids,
+                        word_embedding_matrix=get_word_embedding_matrix(
+                            model),
+                        heads=_task_heads(task, cfg),
+                        generator=generator if model.training else None)
+        with span("xlt.train.loss"):
+            losses = pretrain_losses(out, labels, task,
+                                     cfg.visual_loss_keys, cfg.task_qa)
+            if "qa_pred" in losses:
+                qa = labels["qa_labels"]
+                valid = qa >= 0
+                correct = (losses.pop("qa_pred") == qa) & valid
+                losses["qa_acc"] = (correct.sum().float()
+                                    / valid.sum().clamp(min=1))
         return losses
 
     def loss_and_grads(self, model: XLxmert, batch: Dict[str, torch.Tensor],
@@ -374,8 +390,10 @@ class PretrainEngine:
         losses = self.forward_losses(model, batch, task, centroids,
                                      generator)
         named = dict(model.named_parameters())
-        grads = dict(zip(named, torch.autograd.grad(
-            losses["total_loss"], list(named.values()), allow_unused=True)))
+        with span("xlt.train.backward"):
+            grads = dict(zip(named, torch.autograd.grad(
+                losses["total_loss"], list(named.values()),
+                allow_unused=True)))
         unused = {n for n, g in grads.items() if g is None}
         expected = set(named) - used_param_mask(named, task, self.cfg)
         if unused != expected:
@@ -391,8 +409,9 @@ class PretrainEngine:
         its loss reaches are updated, the others keep their moments and
         counts. Returns the losses and the global gradient norm as
         device tensors."""
-        return self.placed_train_step(state, self.place(batch), task,
-                                      centroids)
+        with span("xlt.train.inputs"):
+            placed = self.place(batch)
+        return self.placed_train_step(state, placed, task, centroids)
 
     def placed_train_step(self, state: TrainState,
                           batch: Dict[str, torch.Tensor], task: str,
@@ -407,11 +426,19 @@ class PretrainEngine:
                                             centroids, state.generator)
         # the same set on every rank: used_param_mask decides it
         used = {n for n, g in grads.items() if g is not None}
-        grads = pmesh.all_reduce_mean(grads, self.data_group)
-        losses = pmesh.mean_over(losses, self.data_group)
-        losses["grad_norm"] = state.opt.norm({n: grads[n] for n in used})
-        state.opt.step(grads, used=used)
+        with span("xlt.train.backward"):
+            grads = pmesh.all_reduce_mean(grads, self.data_group)
+            losses = pmesh.mean_over(losses, self.data_group)
+        with span("xlt.train.clip"):
+            # in the parameters' order (a set's order differs between
+            # processes, and so would the sum's rounding)
+            losses["grad_norm"] = state.opt.norm(
+                {n: g for n, g in grads.items() if n in used})
+        # the clip's norm is this one: one global norm a step
+        state.opt.step(grads, used=used, norm=losses["grad_norm"])
         state.step += 1
+        count(f"xlt.train.steps.{task}")
+        count("xlt.train.params_skipped", len(grads) - len(used))
         return losses
 
     def chained_train_step(self, task: str, k: int,
